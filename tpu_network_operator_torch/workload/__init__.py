@@ -1,0 +1,16 @@
+"""Validation-workload runner of the PyTorch port.
+
+``python -m tpu_network_operator_torch.workload <subcommand>``; this slice
+has one subcommand:
+
+* ``generate`` -- KV-cache decode throughput (tokens/sec) of a Llama-3
+  preset with random weights on one device (``--device``, default cuda;
+  ``cpu`` runs the kernels' plain versions).
+
+Training, the collectives sweep and the exec bench come with later slices.
+"""
+
+from .cli import build_parser, main
+from .common import LLAMA_PRESET_NAMES, log
+
+__all__ = ["build_parser", "main", "log", "LLAMA_PRESET_NAMES"]

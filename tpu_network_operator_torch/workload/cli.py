@@ -1,0 +1,47 @@
+"""Argument parsing and dispatch for the workload subcommands."""
+
+from __future__ import annotations
+
+import argparse
+
+from .common import LLAMA_PRESET_NAMES
+from .generate import cmd_generate
+
+
+def build_parser() -> argparse.ArgumentParser:
+    from . import __doc__ as pkg_doc
+
+    p = argparse.ArgumentParser(
+        prog="tpu-network-operator-torch-workload",
+        description=pkg_doc,
+        formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    g = sub.add_parser("generate", help="decode throughput")
+    g.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions (default: cuda)")
+    g.add_argument("--preset", default="tiny", choices=LLAMA_PRESET_NAMES)
+    g.add_argument("--batch", type=int, default=4)
+    g.add_argument("--prompt-len", type=int, default=16)
+    g.add_argument("--max-new-tokens", type=int, default=32)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0,
+                   help="truncate sampling to the k highest-prob ids")
+    g.add_argument("--top-p", type=float, default=1.0,
+                   help="nucleus sampling: smallest top-p probability mass")
+    g.add_argument("--decode-block", type=int, default=256,
+                   help="effective-length decode granularity; 0 = attend "
+                        "over the full KV buffer every step")
+    g.add_argument("--kv-dtype", default="native",
+                   choices=["native", "int8"],
+                   help="int8 block-quantizes the KV cache: half the "
+                        "cache bytes at KV-quant noise")
+    g.set_defaults(fn=cmd_generate)
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    return args.fn(args)

@@ -1,0 +1,55 @@
+"""``workload generate``: KV-cache decode throughput on one device."""
+
+from __future__ import annotations
+
+import time
+
+import torch
+
+from .. import resolve_device
+from .common import emit, llama_presets, log, pick_preset
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def cmd_generate(args) -> int:
+    from ..models.generate import make_generate_fn
+    from ..models.llama import init_params
+
+    device = resolve_device(args.device)
+    cfg = pick_preset(llama_presets(), args.preset, "llama")
+    params = init_params(cfg, torch.Generator(device).manual_seed(0), device)
+    prompt = torch.ones((args.batch, args.prompt_len), dtype=torch.int64,
+                        device=device)
+    gen = make_generate_fn(
+        cfg, args.max_new_tokens, temperature=args.temperature,
+        top_k=args.top_k, top_p=args.top_p,
+        decode_block=args.decode_block, kv_dtype=args.kv_dtype,
+    )
+
+    def run_once():
+        out = gen(params, prompt, torch.Generator(device).manual_seed(1))
+        _sync(device)
+        return out
+
+    t0 = time.perf_counter()
+    out = run_once()
+    log(f"first call {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    out = run_once()
+    dt = time.perf_counter() - t0
+
+    emit({
+        "metric": f"{args.preset} decode throughput",
+        "value": round(args.batch * args.max_new_tokens / dt, 1),
+        "unit": "tokens/sec",
+        "batch": args.batch,
+        "new_tokens": args.max_new_tokens,
+        "kv_dtype": args.kv_dtype,
+        "out_shape": list(out.shape),
+        "mesh": {"devices": 1, "device": str(device)},
+    })
+    return 0
