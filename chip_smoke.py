@@ -1,20 +1,29 @@
-"""Drive the PyTorch port's serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU
+and check them.
 
     python3 chip_smoke.py
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device: the torch device and ``nvidia-smi``'s name and power limit;
 2. build: compile the CUDA kernels from ``tpu_network_operator_torch/ops/
    csrc`` (one ``nvcc`` per source, in parallel);
-3. kernels: each kernel against its plain PyTorch version on the card;
+3. kernels: each kernel, forward and backward, against its plain PyTorch
+   version on the card;
 4. generate: greedy ``generate`` of ``llama3-1b`` at full width and depth
    (random bf16 weights from a seeded CUDA generator), batch 64, prompt
    128, 256 new tokens, with the kernels' launch counts read from that run;
 5. card_vs_cpu: the same bf16 weights (``llama3-1b`` widths, 2 layers) on
    the card (kernels) and on the CPU (plain versions);
-6. the kernel table: each kernel's time at the serving path's shapes beside
-   its bound, its plain version's time and one PyTorch library call's.
+6. train: the ``llama3-1b`` train step at full width and depth, batch 6 x
+   2048, ``xent_chunk`` 1024, ``remat_policy`` "full", AdamW(3e-4, wd 0.1):
+   a warm-up step, then timed steps on one fixed batch, with every kernel's
+   launches per step read and the loss required to fall; then one
+   profiled step;
+7. train_card_vs_cpu: one loss and gradient at ``llama3-1b`` widths with 2
+   layers from the same bf16 weights on the card and on the CPU;
+8. the kernel table: each kernel's time at its path's shapes beside its
+   bound, its plain version's time and one PyTorch library call's.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -23,7 +32,9 @@ non-zero without one, printing no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -39,9 +50,12 @@ from tpu_network_operator_torch.models.generate import (  # noqa: E402
     generate,
     init_cache,
 )
+from tpu_network_operator_torch.models import training  # noqa: E402
 from tpu_network_operator_torch.models.llama import (  # noqa: E402
     LlamaConfig,
     init_params,
+    loss_fn,
+    make_train_step,
     params_to,
 )
 from tpu_network_operator_torch.ops import _kernels  # noqa: E402
@@ -50,6 +64,8 @@ from tpu_network_operator_torch.ops import norms  # noqa: E402
 
 BATCH, PROMPT, NEW_TOKENS = 64, 128, 256
 SEED = 0
+# the training cell: the repo's headline train rung (bench.py llama3-1b)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 6, 2048, 1024, 3
 
 # published dense peaks per SKU: (device memory B/s, bf16 tensor FLOP/s,
 # f32 non-tensor FLOP/s) -- NVIDIA data sheets
@@ -69,6 +85,20 @@ FLASH_LSE_ATOL = 1e-4
 # card vs CPU, bf16 through 2 full-width layers: normalized max deviation
 # (the JAX flash suite's discipline for bf16 op-ordering differences)
 LOGITS_MAX_REL = 5e-2
+# backward kernels vs plain, bf16 outputs: one rounding of an operand (p,
+# dS) may flip between two f32 summation orders, so the max deviation is
+# held to 2% of the largest gradient and the relative norm of the
+# difference to 1%; the f32 chunk outputs (no output rounding) likewise
+GRAD_MAX_FRAC = 2e-2
+GRAD_REL = 1e-2
+# RMSNorm backward: dx as the forward's y (one bf16 rounding); dscale sums
+# 12288 rows in another order and rounds once, relative to its largest
+RMS_DS_FRAC = 1e-2
+# train card vs CPU: bf16 matmuls accumulate in other orders on the two
+# devices through 2 layers forward and back (the CPU parity tests see
+# ~1.3e-2 in relative norm between the port and JAX in bf16)
+TRAIN_LOSS_REL = 1e-2
+TRAIN_GRAD_REL = 5e-2
 
 
 def emit(payload: dict) -> None:
@@ -131,8 +161,42 @@ def time_ms(fn, iters: int = 20, reps: int = 11) -> float:
     return statistics.median(samples)
 
 
+def time_ms_eager(fn, iters: int = 10, reps: int = 5) -> float:
+    """Device time of one call without a CUDA graph: ``iters`` calls
+    between CUDA events, median of ``reps``.  For calls whose device time
+    (milliseconds) far exceeds their host time, e.g. autograd backwards."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end) / iters)
+    return statistics.median(samples)
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def rel_norm(a: torch.Tensor, ref: torch.Tensor) -> float:
+    ref = ref.float()
+    return ((a.float() - ref).norm() / ref.norm().clamp_min(1e-12)).item()
+
+
+def grad_ok(out: torch.Tensor, ref: torch.Tensor) -> dict:
+    """The backward tolerance (GRAD_MAX_FRAC, GRAD_REL) with its numbers."""
+    err = max_err(out, ref)
+    big = ref.float().abs().max().item()
+    rel = rel_norm(out, ref)
+    return {"max_abs_err": err, "max_ref": big, "rel_norm": rel,
+            "ok": err <= GRAD_MAX_FRAC * max(big, 1.0) and rel <= GRAD_REL}
 
 
 # -- phases -------------------------------------------------------------------
@@ -213,23 +277,118 @@ def phase_kernels():
                   f"{(b, h, hkv, s, d, causal)}")
 
 
-def profile_decode(params, cfg, cache, tok, steps: int = 32) -> dict:
-    """torch.profiler over ``steps`` greedy decode steps after a prefill:
-    wall time per step, the device's busy share (sum of kernel times over
-    wall time; one stream, so kernels do not overlap) and the kernels that
-    take the most device time.  The profiler's own host cost is inside
-    the wall time."""
+def _flash_bwd_inputs(b, h, hkv, s, d, causal, gen):
+    """q, k, v, a cotangent dO, and the forward kernel's lse and delta."""
+    q, k, v = _flash_case(b, h, hkv, s, d, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+    o, lse = fa._flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
+                                  head_dim=2)
+    delta = fa.attention_delta(o.transpose(1, 2), do.transpose(1, 2))
+    return q, k, v, do, lse, delta
+
+
+def _flash_bwd_kernels(q, k, v, do, lse, delta, causal):
+    kw = dict(causal=causal, seq_dim=1, head_dim=2, out_f32=False)
+    dq = fa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+    return (dq, *fa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw))
+
+
+def _flash_bwd_plain_bshd(q, k, v, do, lse, delta, causal):
+    """The plain backward at the kernels' 64x64 blocking, outputs cast as
+    the dense path casts them."""
+    dq, dk, dv = fa._flash_bwd_plain(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), lse, delta,
+        block_q=64, block_k=64, causal=causal, dq_dtype=q.dtype)
+    return (dq.transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+            dv.to(v.dtype).transpose(1, 2))
+
+
+def _grads_ok(outs, refs):
+    res = {n: grad_ok(o, r) for n, o, r in zip(("dq", "dk", "dv"), outs,
+                                                refs)}
+    return res, all(r["ok"] for r in res.values())
+
+
+def phase_kernels_bwd():
+    gen = torch.Generator("cuda").manual_seed(SEED + 4)
+    # the training shape, a ragged row count, wide rows, and a hidden that
+    # is no multiple of the 16-byte vector (the scalar path)
+    for shape in [(12288, 2048), (777, 2048), (5, 4096), (3, 100)]:
+        x, s = _rms_case(shape, gen)
+        dy = torch.randn(shape, device="cuda", generator=gen).bfloat16()
+        _, rstd = norms.fused_rms_norm(x, s, 1e-5)
+        dx, ds = norms.rms_norm_bwd(x, s, rstd, dy)
+        torch.cuda.synchronize()
+        rdx, rds = norms._rms_norm_bwd_plain(x, s, rstd, dy)
+        ds_err = max_err(ds, rds)
+        ds_big = rds.float().abs().max().item()
+        ok = torch.allclose(dx.float(), rdx.float(), **RMS_TOL) and \
+            ds_err <= RMS_DS_FRAC * max(ds_big, 1.0)
+        emit({"phase": "kernels", "kernel": "rms_norm_bwd",
+              "shape": list(shape), "max_abs_err_dx": max_err(dx, rdx),
+              "max_abs_err_dscale": ds_err, "max_dscale": ds_big,
+              "tol": {"dx": RMS_TOL, "dscale_frac": RMS_DS_FRAC}, "ok": ok})
+        check(ok, f"rms_norm_bwd disagrees with its plain version at {shape}")
+    # n_rep 4 and 1, causal and not, S 128 to 2048, D 64 and 128
+    cases = [(2, 32, 8, s, 64, c) for s in (128, 1024) for c in (True, False)]
+    cases += [(1, 32, 8, 2048, 64, True), (2, 16, 16, 512, 128, True),
+              (1, 16, 4, 1024, 128, False), (1, 8, 8, 256, 64, False)]
+    for b, h, hkv, s, d, causal in cases:
+        inputs = _flash_bwd_inputs(b, h, hkv, s, d, causal, gen)
+        outs = _flash_bwd_kernels(*inputs, causal)
+        torch.cuda.synchronize()
+        res, ok = _grads_ok(outs, _flash_bwd_plain_bshd(*inputs, causal))
+        emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
+              "shape": [b, s, h, hkv, d], "causal": causal, **res,
+              "tol": {"max_frac": GRAD_MAX_FRAC, "rel_norm": GRAD_REL},
+              "ok": ok})
+        check(ok, f"flash backward disagrees with its plain version at "
+                  f"{(b, h, hkv, s, d, causal)}")
+    # chunk_bwd: the ring seam, [B, H, S, D] through strides, f32 outputs
+    for causal in (True, False):
+        q, k, v = (t.transpose(1, 2).contiguous()
+                   for t in _flash_case(2, 32, 8, 1024, 64, gen))
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        o, lse = fa.chunk_fwd(q, k, v, causal=causal)
+        delta = fa.attention_delta(o, do)
+        outs = fa.chunk_bwd(q, k, v, do, lse, delta, causal=causal)
+        torch.cuda.synchronize()
+        refs = fa._flash_bwd_plain(q, k, v, do, lse, delta, block_q=64,
+                                   block_k=64, causal=causal)
+        res, ok = _grads_ok(outs, refs)
+        ok = ok and all(t.dtype == torch.float32 for t in outs)
+        emit({"phase": "kernels", "kernel": "chunk_bwd (f32)",
+              "shape": [2, 1024, 32, 8, 64], "causal": causal, **res,
+              "ok": ok})
+        check(ok, f"chunk_bwd disagrees with its plain version "
+                  f"(causal={causal})")
+
+
+def kernel_group(name: str) -> str:
+    """A device kernel's group for the time breakdown."""
+    for key, group in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+                       ("rms_norm", "rms_norm"), ("nvjet", "gemm"),
+                       ("gemm", "gemm"), ("cutlass", "gemm"),
+                       ("at::native", "aten elementwise/reduce")):
+        if key in name:
+            return group
+    return "other"
+
+
+def profile_steps(run, steps: int) -> dict:
+    """torch.profiler over ``steps`` calls of ``run()``: wall time per
+    step, the device's busy share (sum of kernel times over wall time; one
+    stream, so kernels do not overlap) and the kernels that take the most
+    device time.  The profiler's own host cost is inside the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.inference_mode(), profile(activities=acts) as prof:
+    with profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for i in range(steps):
-            logits, _ = forward_with_cache(params, tok[:, None].long(), cache,
-                                           PROMPT + i, cfg, attn_len=256)
-            tok = logits[:, -1].argmax(-1)
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): a CPU op's device time
@@ -237,18 +396,39 @@ def profile_decode(params, cfg, cache, tok, steps: int = 32) -> dict:
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    groups = {}
+    for e in kernels:
+        g = kernel_group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total
     return {
         "steps": steps,
         "step_ms": wall_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us if busy_us else None,
         "device_ms_per_step": busy_us / steps / 1e3 if busy_us else None,
+        "ms_per_step_by_group": {g: us / steps / 1e3
+                                 for g, us in sorted(groups.items())},
         "top_kernels": [
             {"name": e.key[:80], "calls_per_step": e.count / steps,
              "ms_per_step": e.self_device_time_total / steps / 1e3}
             for e in top
         ],
     }
+
+
+def profile_decode(params, cfg, cache, tok, steps: int = 32) -> dict:
+    """The profile of ``steps`` greedy decode steps after a prefill."""
+    state = {"tok": tok, "i": 0}
+
+    def run():
+        logits, _ = forward_with_cache(params, state["tok"][:, None].long(),
+                                       cache, PROMPT + state["i"], cfg,
+                                       attn_len=256)
+        state["tok"] = logits[:, -1].argmax(-1)
+        state["i"] += 1
+
+    with torch.inference_mode():
+        return profile_steps(run, steps)
 
 
 def phase_generate():
@@ -290,7 +470,8 @@ def phase_generate():
     check(int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
           "generated ids outside the vocabulary")
     want = {"flash_fwd": cfg.layers,
-            "rms_norm_fwd": (2 * cfg.layers + 1) * forward_calls}
+            "rms_norm_fwd": (2 * cfg.layers + 1) * forward_calls,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     emit({"phase": "generate", "preset": "llama3-1b", "layers": cfg.layers,
           "params": cfg.num_params(), "batch": BATCH, "prompt": PROMPT,
@@ -338,11 +519,154 @@ def phase_card_vs_cpu():
     check(first_equal, "card vs CPU: first greedy token differs")
 
 
-def phase_table(name: str, launches: dict):
+def train_cfg(**kw) -> LlamaConfig:
+    """The training cell: llama3-1b with full remat and chunked xent."""
+    return dataclasses.replace(LlamaConfig.llama3_1b(), **{
+        "remat": True, "remat_policy": "full", "xent_chunk": TRAIN_CHUNK,
+        **kw})
+
+
+def phase_train() -> dict:
+    cfg = train_cfg()
+    n = cfg.layers
+    step, init_all, _ = make_train_step(cfg, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_all(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, loss = step(params, opt_state, tokens)
+    losses = [loss.item()]
+    first_s = time.perf_counter() - t0
+
+    step_s, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(loss.item())          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(dict(_kernels.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+
+    # per step under full remat: every layer's forward runs twice (once
+    # more in the backward's recompute), the final norm once
+    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1}
+    check(all(p == want for p in per_step),
+          f"train-step launches {per_step}, expected {want} per step")
+    check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
+    check(losses[-1] < losses[0],
+          f"the loss did not fall on the fixed batch: {losses}")
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    med = statistics.median(step_s)
+    emit({"phase": "train", "preset": "llama3-1b", "layers": n,
+          "params": cfg.num_params(), "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "xent_chunk": cfg.xent_chunk,
+          "remat_policy": cfg.remat_policy, "optimizer": "adamw(3e-4, 0.1)",
+          "first_step_s": first_s, "step_s": step_s, "median_step_s": med,
+          "tokens_per_s": tokens_per_step / med, "losses": losses,
+          "launches_per_step": per_step[-1],
+          "peak_mem_gib": peak / 2**30})
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    emit({"phase": "profile_train", **profile_steps(run, 1)})
+    del params, opt_state, step, init_all
+    torch.cuda.empty_cache()
+    return per_step[-1]
+
+
+def phase_train_card_vs_cpu():
+    # llama3-1b widths, 2 layers, batch 1 x 256, xent in chunks of 128
+    cfg = train_cfg(layers=2, xent_chunk=128)
+    params_gpu = init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED + 6), "cuda")
+    params_cpu = params_to(params_gpu, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 257),
+                           generator=torch.Generator().manual_seed(SEED + 7))
+    out = {}
+    for dev, params in (("cuda", params_gpu), ("cpu", params_cpu)):
+        leaves = [t.requires_grad_() for t in training.tree_leaves(params)]
+        loss = loss_fn(params, tokens.to(dev), cfg)
+        grads = torch.autograd.grad(loss, leaves)
+        out[dev] = (loss.item(), [g.float().cpu() for g in grads])
+    names = list(_leaf_names(params_cpu))
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    grad_rel = {name: rel_norm(g, r) for name, g, r in
+                zip(names, out["cuda"][1], out["cpu"][1])}
+    emit({"phase": "train_card_vs_cpu", "layers": cfg.layers, "batch": 1,
+          "seq": 256, "loss_cuda": out["cuda"][0], "loss_cpu": out["cpu"][0],
+          "loss_rel": loss_rel, "grad_rel_norm": grad_rel,
+          "tol": {"loss_rel": TRAIN_LOSS_REL,
+                  "grad_rel_norm": TRAIN_GRAD_REL}})
+    check(loss_rel < TRAIN_LOSS_REL, f"train card vs CPU loss: {loss_rel}")
+    worst = max(grad_rel, key=grad_rel.get)
+    check(grad_rel[worst] < TRAIN_GRAD_REL,
+          f"train card vs CPU gradient of {worst}: {grad_rel[worst]}")
+
+
+def _leaf_names(tree, prefix=""):
+    """Key paths in training.tree_leaves order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_names(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k
+
+
+def _bound(nbytes, flops, bw, peak):
+    t_bytes, t_ops = nbytes / bw * 1e3, flops / peak * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _sdpa_backward_ms(q, k, v, do):
+    """One PyTorch call's backward for the same attention, as a yardstick:
+    ``scaled_dot_product_attention`` forward + backward minus forward, on
+    [B, H, S, D] copies, under the first fused backend that takes the GQA
+    shapes (K/V repeated to the q-heads if none takes them as they are).
+    Timed without a CUDA graph: milliseconds of device work per call."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    n_rep = qt.shape[1] // kt.shape[1]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        for gqa in (True, False):
+            kk, vv = (kt, vt) if gqa else (
+                t.repeat_interleave(n_rep, dim=1) for t in (kt, vt))
+            leaves = [t.detach().requires_grad_() for t in (qt, kk, vv)]
+
+            def fwd():
+                return sdpa(*leaves, is_causal=True, enable_gqa=gqa)
+
+            def both():
+                return torch.autograd.grad(fwd(), leaves, dot)
+
+            try:
+                with sdpa_kernel([backend]):
+                    both()
+                    torch.cuda.synchronize()
+                    ms = time_ms_eager(both) - time_ms_eager(fwd)
+            except RuntimeError:
+                continue
+            return ms, {"backend": backend.name, "gqa_native": gqa}
+    return None, {"backend": None}
+
+
+def phase_table(name: str, launches: dict, train_launches: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
-    rows = []
+    h, hkv, d = cfg.heads, cfg.kv_heads, cfg.head_dim
+    tb, ts = TRAIN_BATCH, TRAIN_SEQ
 
     def rms_entry(n_rows):
         x, s = _rms_case((n_rows, cfg.hidden), gen)
@@ -350,60 +674,140 @@ def phase_table(name: str, launches: dict):
         ref = norms._rms_norm_plain(x, s, cfg.rms_eps)
         check(torch.allclose(y.float(), ref.float(), **RMS_TOL),
               f"rms_norm_fwd disagrees with its plain version at {n_rows} rows")
-        err = max_err(y, ref)
         nbytes = 2 * x.numel() * 2 + s.numel() * 2 + n_rows * 4
-        flops = 4 * x.numel()
-        t_bytes, t_ops = nbytes / bw * 1e3, flops / f32_peak * 1e3
         return {
             "shape": [n_rows, cfg.hidden],
-            "max_abs_err": err,
+            "max_abs_err": max_err(y, ref),
             "ms": time_ms(lambda: norms.fused_rms_norm(x, s, cfg.rms_eps)),
             "plain_ms": time_ms(
                 lambda: norms._rms_norm_plain(x, s, cfg.rms_eps)),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            **_bound(nbytes, 4 * x.numel(), bw, f32_peak),
             "library_ms": time_ms(lambda: torch.nn.functional.rms_norm(
                 x, (cfg.hidden,), s, cfg.rms_eps)),
         }
 
-    prefill = rms_entry(BATCH * PROMPT)
-    decode = rms_entry(BATCH)
-    rows.append({
+    def flash_fwd_entry(b, s, iters_plain):
+        q, k, v = _flash_case(b, h, hkv, s, d, gen)
+        o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                      head_dim=2)
+        ro, rlse = _flash_plain_bshd(q, k, v, True)
+        err = max_err(o, ro)
+        check(err <= FLASH_O_ATOL and max_err(lse, rlse) <= FLASH_LSE_ATOL,
+              f"flash_fwd disagrees with its plain version at {(b, s)}")
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
+        pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
+        flops = 4 * d * pairs * b * h       # QK^T and PV over the causal pairs
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return {
+            "shape": [b, s, h, hkv, d], "max_abs_err": err,
+            "ms": time_ms(lambda: fa._flash_fwd_kernel(
+                q, k, v, causal=True, seq_dim=1, head_dim=2)),
+            "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, True),
+                                iters=iters_plain, reps=5),
+            **_bound(nbytes, flops, bw, bf16_peak),
+            "library_ms": time_ms(
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)),
+        }
+
+    # -- RMSNorm forward: prefill and decode (serving), and the train shape
+    rows = [{
         "name": "rms_norm_fwd", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/rms_norm_fwd.cu",
         "replaces": "tpu_network_operator/ops/norms.py:91",
         "launches": launches["rms_norm_fwd"],
-        **prefill, "decode": decode,
-    })
+        **rms_entry(BATCH * PROMPT), "decode": rms_entry(BATCH),
+        "train": {**rms_entry(tb * ts),
+                  "launches": train_launches["rms_norm_fwd"]},
+    }]
 
-    b, h, hkv, s, d = BATCH, cfg.heads, cfg.kv_heads, PROMPT, cfg.head_dim
-    q, k, v = _flash_case(b, h, hkv, s, d, gen)
-    o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
-                                  head_dim=2)
-    ro, rlse = _flash_plain_bshd(q, k, v, True)
-    err = max_err(o, ro)
-    check(err <= FLASH_O_ATOL and max_err(lse, rlse) <= FLASH_LSE_ATOL,
-          "flash_fwd disagrees with its plain version at the prefill shape")
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
-    pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
-    flops = 4 * d * pairs * b * h       # QK^T and PV over the causal pairs
-    t_bytes, t_ops = nbytes / bw * 1e3, flops / bf16_peak * 1e3
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    # -- RMSNorm backward at the train shape
+    x, s = _rms_case((tb * ts, cfg.hidden), gen)
+    dy = torch.randn(x.shape, device="cuda", generator=gen).bfloat16()
+    _, rstd = norms.fused_rms_norm(x, s, cfg.rms_eps)
+    dx, ds = norms.rms_norm_bwd(x, s, rstd, dy)
+    rdx, rds = norms._rms_norm_bwd_plain(x, s, rstd, dy)
+    check(torch.allclose(dx.float(), rdx.float(), **RMS_TOL),
+          "rms_norm_bwd disagrees with its plain version at the train shape")
+    xr, sr = x.detach().requires_grad_(), s.detach().requires_grad_()
+
+    def lib_fwd():
+        return torch.nn.functional.rms_norm(xr, (cfg.hidden,), sr,
+                                            cfg.rms_eps)
+
+    # x, dy and dx once each, rstd, scale and dscale; ~10 f32 flops each
+    nbytes = 3 * x.numel() * 2 + x.shape[0] * 4 + 2 * s.numel() * 2
+    rows.append({
+        "name": "rms_norm_bwd", "route": "cuda",
+        "source": "tpu_network_operator_torch/ops/csrc/rms_norm_bwd.cu",
+        "replaces": "tpu_network_operator/ops/norms.py:103",
+        "launches": train_launches["rms_norm_bwd"],
+        "shape": list(x.shape), "max_abs_err": max_err(dx, rdx),
+        "max_abs_err_dscale": max_err(ds, rds),
+        "ms": time_ms(lambda: norms.rms_norm_bwd(x, s, rstd, dy)),
+        "plain_ms": time_ms(lambda: norms._rms_norm_bwd_plain(x, s, rstd, dy)),
+        **_bound(nbytes, 10 * x.numel(), bw, f32_peak),
+        # F.rms_norm forward + backward, minus its forward
+        "library_ms": time_ms(lambda: torch.autograd.grad(
+            lib_fwd(), (xr, sr), dy)) - time_ms(lib_fwd),
+    })
+    del x, dy, dx, rdx, xr, sr
+
+    # -- flash forward: the prefill shape (serving) and the train shape
     rows.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/flash_fwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:67",
         "launches": launches["flash_fwd"],
-        "shape": [b, s, h, hkv, d], "max_abs_err": err,
-        "ms": time_ms(lambda: fa._flash_fwd_kernel(
-            q, k, v, causal=True, seq_dim=1, head_dim=2)),
-        "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, True),
-                            iters=3, reps=5),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+        **flash_fwd_entry(BATCH, PROMPT, 3),
+        "train": {**flash_fwd_entry(tb, ts, 1),
+                  "launches": train_launches["flash_fwd"]},
+    })
+
+    # -- flash backward at the train shape
+    inputs = _flash_bwd_inputs(tb, h, hkv, ts, d, True, gen)
+    q, k, v, do, lse, delta = inputs
+    outs = _flash_bwd_kernels(*inputs, True)
+    refs = _flash_bwd_plain_bshd(*inputs, True)
+    res, ok = _grads_ok(outs, refs)
+    check(ok, f"flash backward disagrees with its plain version at the "
+              f"train shape: {res}")
+    del outs, refs
+    bp = fa._BwdPlain(*(t.transpose(1, 2) for t in (q, k, v, do)), lse,
+                      delta, 64, 64, True)
+    lib_ms, lib = _sdpa_backward_ms(q, k, v, do)
+    pairs = ts * (ts + 1) // 2
+    matmul = 2 * d * pairs * tb * h         # one causal product, all heads
+    q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, tb * h * ts * 4
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
+    common = {"route": "cuda",
+              "source": "tpu_network_operator_torch/ops/csrc/flash_bwd.cu",
+              "shape": [tb, ts, h, hkv, d],
+              "library_ms": lib_ms, "library": {**lib, "covers": "dq+dkv"}}
+    rows.append({
+        "name": "flash_bwd_dq", **common,
+        "replaces": "tpu_network_operator/ops/pallas_attention.py:158",
+        "launches": train_launches["flash_bwd_dq"],
+        "max_abs_err": res["dq"]["max_abs_err"],
+        "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),
+        "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp, q.dtype),
+                            iters=1, reps=3),
+        # S, dP and dQ; reads q, dO, k, v, lse, delta, writes dq
+        **_bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, 3 * matmul,
+                 bw, bf16_peak),
+    })
+    rows.append({
+        "name": "flash_bwd_dkv", **common,
+        "replaces": "tpu_network_operator/ops/pallas_attention.py:204",
+        "launches": train_launches["flash_bwd_dkv"],
+        "max_abs_err": max(res["dk"]["max_abs_err"],
+                           res["dv"]["max_abs_err"]),
+        "ms": time_ms(lambda: fa._flash_bwd_dkv_kernel(*inputs, **kw)),
+        "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp),
+                            iters=1, reps=3),
+        # S, dP, dV and dK; reads q, dO, k, v, lse, delta, writes dk, dv
+        **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
+                 bw, bf16_peak),
     })
     emit({"kernels": rows})
 
@@ -412,9 +816,12 @@ def main() -> int:
     name, smi = phase_device()
     phase_build()
     phase_kernels()
+    phase_kernels_bwd()
     launches = phase_generate()
     phase_card_vs_cpu()
-    phase_table(name, launches)
+    train_launches = phase_train()
+    phase_train_card_vs_cpu()
+    phase_table(name, launches, train_launches)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

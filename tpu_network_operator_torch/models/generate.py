@@ -28,7 +28,7 @@ from ..ops.flash_attention import flash_attention
 from ..ops.flash_attention import supports as flash_supports
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_at, rope_angles
-from .llama import LlamaConfig, Params, layer_params
+from .llama import LlamaConfig, Params, unbind_layers
 
 
 def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
@@ -155,11 +155,11 @@ def forward_with_cache(
                            scaling=cfg.rope_scaling_dict, device=x.device)
     cos, sin = rope
     quant = "k_scale" in cache
-    for i in range(cfg.layers):
+    for i, lp in enumerate(unbind_layers(params)):
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant \
             else (None, None)
         x = _block_with_cache(
-            cfg, cos, sin, pos, x, layer_params(params, i),
+            cfg, cos, sin, pos, x, lp,
             cache["k"][i], cache["v"][i], attn_len, *scales,
         )
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)

@@ -1,18 +1,20 @@
 """Llama-3-family transformer in PyTorch.
 
-Counterpart of ``tpu_network_operator/models/llama.py``, forward only (the
-training half, with remat and the backward kernels, is a later slice).
-The parameter layout is the reference's, so weights move between the two
+Counterpart of ``tpu_network_operator/models/llama.py`` on one device:
+the forward, the training loss (full or chunked cross entropy) with the
+layers under the configured remat policy, and the train step.  The
+parameter layout is the reference's, so weights move between the two
 packages by name: a plain dict whose layer leaves are stacked ``[L, ...]``
 and whose projections are ``W[in, out]`` applied as ``x @ W``.  The layers
-run in a Python loop over the stacked leaves.
+run in a Python loop over the stacked leaves, unbound once per forward.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +24,7 @@ from ..ops import flash_attention as fa
 from ..ops.attention import causal_attention
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_angles
+from . import training
 
 Params = Dict[str, Any]
 
@@ -41,6 +44,13 @@ class LlamaConfig:
     rope_scaling: Optional[Tuple[Tuple[str, float], ...]] = None
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # training.remat's policy names: "dots", "ffn", "ffn_lite", "full"
+    remat_policy: str = "dots"
+    # >0: training cross entropy in sequence chunks of this size, so the
+    # [B, S, vocab] logits are never held at once
+    # (training.chunked_next_token_xent); 0 = full logits
+    xent_chunk: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -106,7 +116,7 @@ class LlamaConfig:
         """Test config: small but structurally identical."""
         return LlamaConfig(
             vocab_size=vocab, hidden=64, layers=2, heads=4, kv_heads=2,
-            ffn=128, max_seq=128,
+            ffn=128, max_seq=128, remat=False,
         )
 
 
@@ -182,9 +192,13 @@ def params_to(params: Params, device) -> Params:
     }
 
 
-def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
-    """Layer i's slice of the stacked layer leaves (views)."""
-    return {name: leaf[i] for name, leaf in params["layers"].items()}
+def unbind_layers(params: Params) -> List[Dict[str, torch.Tensor]]:
+    """Every layer's slice of the stacked leaves, from one ``unbind`` per
+    leaf: its backward is one stack of the layer gradients, where indexing
+    each layer would write a zero-filled full-size gradient per layer."""
+    names = list(params["layers"])
+    slices = [params["layers"][n].unbind(0) for n in names]
+    return [dict(zip(names, per_layer)) for per_layer in zip(*slices)]
 
 
 # -- forward ------------------------------------------------------------------
@@ -198,8 +212,11 @@ def attention(cfg: LlamaConfig, q, k, v) -> torch.Tensor:
     return causal_attention(q, k, v)
 
 
-def _layer(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
-    """One transformer block.  x: [B, S, H]; lp: this layer's params."""
+def _layer(cfg: LlamaConfig, cos, sin, x, lp,
+           name=training.no_name) -> torch.Tensor:
+    """One transformer block.  x: [B, S, H]; lp: this layer's params.
+    ``name`` tags the intermediates the selective remat policies save
+    (:func:`.training.name_fn`)."""
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
     b, s, _ = y.shape
     q = (y @ lp["wq"]).reshape(b, s, cfg.heads, cfg.head_dim)
@@ -208,21 +225,29 @@ def _layer(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     a = attention(cfg, q, k, v)
-    x = x + a.reshape(b, s, -1) @ lp["wo"]
+    x = name(x + a.reshape(b, s, -1) @ lp["wo"], "resid_mid")
 
     y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    gated = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
-    return x + gated @ lp["w_down"]
+    gate = name(y @ lp["w_gate"], "ffn_gate")
+    up = name(y @ lp["w_up"], "ffn_up")
+    return x + (torch.nn.functional.silu(gate) * up) @ lp["w_down"]
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
                    cfg: LlamaConfig) -> torch.Tensor:
-    """Final-norm hidden states [B, S, hidden]."""
-    x = params["embed"][tokens].to(cfg.dtype)
+    """Final-norm hidden states [B, S, hidden]: everything before the
+    vocab projection.  With ``cfg.remat`` and grad enabled, each layer runs
+    under the configured remat policy."""
+    x = torch.nn.functional.embedding(tokens, params["embed"]).to(cfg.dtype)
     cos, sin = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            scaling=cfg.rope_scaling_dict, device=x.device)
-    for i in range(cfg.layers):
-        x = _layer(cfg, cos, sin, x, layer_params(params, i))
+    remat = cfg.remat and torch.is_grad_enabled()
+    block = functools.partial(_layer, cfg, cos, sin,
+                              name=training.name_fn(remat, cfg.remat_policy))
+    if remat:
+        block = training.remat(block, cfg.remat_policy)
+    for lp in unbind_layers(params):
+        x = block(x, lp)
     return rms_norm(x, params["ln_final"], cfg.rms_eps)
 
 
@@ -231,3 +256,29 @@ def forward(params: Params, tokens: torch.Tensor,
     """Logits [B, S, vocab] f32 (a matmul in cfg.dtype, then widened)."""
     x = forward_hidden(params, tokens, cfg)
     return (x @ params["lm_head"]).float()
+
+
+def loss_fn(params: Params, tokens: torch.Tensor,
+            cfg: LlamaConfig) -> torch.Tensor:
+    """Next-token cross entropy over [B, S]; tokens [B, S+1]."""
+    if cfg.xent_chunk > 0:
+        x = forward_hidden(params, tokens[:, :-1], cfg)
+        return training.chunked_next_token_xent(
+            x, params["lm_head"], tokens, cfg.xent_chunk)
+    logits = forward(params, tokens[:, :-1], cfg)
+    return training.next_token_xent(logits, tokens)
+
+
+def make_train_step(cfg: LlamaConfig, optimizer=None, device=None):
+    """(step, init_all, optimizer) on one device (``device`` None means
+    CUDA, and raises without it): ``step(params, opt_state, tokens) ->
+    (params, opt_state, loss)`` with the parameters and moments updated in
+    place; ``init_all(generator) -> (params, opt_state)``, the generator
+    living on the device.  The optimizer defaults to
+    ``training.adamw(3e-4, weight_decay=0.1)``."""
+    dev = resolve_device(device)
+    return training.make_train_step(
+        lambda params, tokens: loss_fn(params, tokens, cfg),
+        lambda generator: init_params(cfg, generator, dev),
+        optimizer,
+    )

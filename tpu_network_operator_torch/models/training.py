@@ -1,0 +1,306 @@
+"""The single-device train step: loss math, remat policies, AdamW.
+
+Counterpart of ``tpu_network_operator/models/training.py``.  One device,
+no mesh: :func:`make_train_step` keeps the reference's contract
+(``step(params, opt_state, tokens) -> (params, opt_state, loss)``), and
+updates the parameters and the moments in place, which is what the
+reference's donation of both buffers buys on the TPU.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Iterator, Optional, Tuple
+
+import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
+
+REMAT_POLICIES = ("dots", "ffn", "ffn_lite", "ffn_offload", "full")
+# the intermediates each named policy keeps (tagged in llama._layer)
+SAVED_NAMES = {
+    "ffn": ("resid_mid", "ffn_gate", "ffn_up"),
+    "ffn_lite": ("resid_mid", "ffn_gate"),
+}
+_MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+
+
+# -- named intermediates ------------------------------------------------------
+
+
+@torch.library.custom_op("tpunet::checkpoint_name", mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x under a name the selective remat policies can save (the
+    counterpart of ``jax.ad_checkpoint.checkpoint_name``).  A custom op
+    may not return its input, so this is a copy: the models call it only
+    under a policy that reads the names (:func:`name_fn`)."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+def _name_backward(ctx, grad):
+    return grad, None
+
+
+checkpoint_name.register_autograd(_name_backward)
+
+
+def no_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """The tagging function when no policy reads the names: x itself."""
+    return x
+
+
+def name_fn(remat: bool, policy: str) -> Callable:
+    """The tagging function a layer uses: :func:`checkpoint_name` under a
+    policy that saves named tensors, the identity otherwise."""
+    return checkpoint_name if remat and policy in SAVED_NAMES else no_name
+
+
+# -- remat --------------------------------------------------------------------
+
+
+def _save_ops(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in ops \
+            else CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def _save_names(names):
+    def policy(ctx, op, *args, **kwargs):
+        if op is torch.ops.tpunet.checkpoint_name.default and args[1] in names:
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def remat(fn: Callable, policy: str) -> Callable:
+    """``fn`` under ``torch.utils.checkpoint`` with the reference's named
+    policy (``training.remat_policy``):
+
+    * ``full``: save nothing but the inputs, recompute the rest;
+    * ``dots``: save every matmul output (``dots_saveable``);
+    * ``ffn`` / ``ffn_lite``: save the tensors tagged ``resid_mid``,
+      ``ffn_gate`` (and ``ffn_up``) by :func:`checkpoint_name`.
+
+    Eager PyTorch replays the whole function when it recomputes; a saved
+    op's output is taken from the cache instead of being recomputed, but
+    the ops that feed it still run.  ``ffn_offload`` (the ``ffn`` set kept
+    in pinned host memory) is not ported yet and raises."""
+    if policy == "full":
+        context_fn = None
+    elif policy == "dots":
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_ops(_MATMULS))
+    elif policy in SAVED_NAMES:
+        context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                       _save_names(SAVED_NAMES[policy]))
+    elif policy == "ffn_offload":
+        raise NotImplementedError(
+            "remat_policy 'ffn_offload' (saved FFN tensors offloaded to "
+            "pinned host memory) is not ported yet: see ROADMAP.md, queue "
+            "1 item 3"
+        )
+    else:
+        raise ValueError(
+            f"unknown remat_policy {policy!r}; choose from {REMAT_POLICIES}"
+        )
+
+    def wrapped(*args):
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=context_fn)
+
+    return wrapped
+
+
+# -- loss ---------------------------------------------------------------------
+
+
+class _LogitsF32(torch.autograd.Function):
+    """x @ w with f32 output from operands in their own dtype (bf16 on the
+    model path), as ``einsum(..., preferred_element_type=f32)`` computes
+    the reference's vocab projection: the products accumulate in f32 and
+    no logit is rounded to bf16.
+
+    On CUDA the forward is one tensor-core GEMM with an f32 output
+    (``torch.mm(..., out_dtype=float32)``, which has no autograd formula of
+    its own); on the CPU the operands are widened to f32 first, which is
+    exact.  The backward rounds the f32 logits cotangent to the operands'
+    dtype once and runs the two GEMMs on it with f32 accumulation (what
+    the TPU's default matmul precision does with f32 operands); an f32
+    GEMM on the card would run without tensor cores.  In f32 models the
+    rounding is the identity."""
+
+    @staticmethod
+    def forward(ctx, x2, w):
+        ctx.save_for_backward(x2, w)
+        if x2.device.type == "cuda":
+            return torch.mm(x2, w, out_dtype=torch.float32)
+        return x2.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        g = g.to(x2.dtype)
+        if x2.device.type == "cuda":
+            return g @ w.t(), x2.t() @ g
+        g32 = g.float()
+        return ((g32 @ w.float().t()).to(x2.dtype),
+                (x2.float().t() @ g32).to(w.dtype))
+
+
+def logits_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., H] @ w [H, V] -> f32 logits [..., V] (see :class:`_LogitsF32`)."""
+    out = _LogitsF32.apply(x.reshape(-1, x.shape[-1]), w)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def next_token_xent(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy.  logits [B,S,V] f32, tokens [B,S+1]."""
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None])[..., 0]
+    return (logz - gold).mean()
+
+
+def _chunk_loss(xc, lm_head, tc):
+    logits = logits_f32(xc, lm_head)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, tc[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_next_token_xent(
+    x: torch.Tensor,          # [B, S, H] final hidden states
+    lm_head: torch.Tensor,    # [H, V]
+    tokens: torch.Tensor,     # [B, S+1]
+    chunk: int,
+) -> torch.Tensor:
+    """Next-token xent that never holds the full [B, S, V] logits: the
+    vocab projection and softmax run per sequence chunk, each chunk under
+    its own checkpoint, so the backward recomputes one chunk's f32 logits
+    at a time and the peak is [B, chunk, V]."""
+    targets = tokens[:, 1:].long()
+    b, s, _ = x.shape
+    n = s // chunk
+    if n * chunk != s:
+        raise ValueError(f"seq {s} not divisible by xent chunk {chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        total = total + checkpoint(_chunk_loss, x[:, sl], lm_head,
+                                   targets[:, sl], use_reentrant=False)
+    return total / (b * s)
+
+
+# -- AdamW --------------------------------------------------------------------
+
+Tree = Dict[str, object]
+
+
+def tree_leaves(tree: Tree) -> Iterator[torch.Tensor]:
+    """The tensors of a nested dict, in insertion order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def tree_map(fn: Callable, tree: Tree) -> Tree:
+    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+class AdamW:
+    """``optax.adamw`` in plain tensor code, updating in place.
+
+    Same defaults (b1 0.9, b2 0.999, eps 1e-8, decay on every leaf),
+    moments in the parameter dtype, and optax's order of operations:
+    moments, bias correction, m̂ / (√v̂ + eps), + wd · p, × −lr, then
+    p + u in p's dtype.  Every Python constant meets a tensor in that
+    tensor's dtype, as JAX casts a weak-typed scalar (so in bf16, b2
+    = 0.999 is 1.0 and 1 − b1 is 0.10009765625, as under optax), and the
+    bias corrections 1 − βᵗ are taken in f32 before the cast."""
+
+    def __init__(self, lr: float = 3e-4, weight_decay: float = 0.1,
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.weight_decay = lr, weight_decay
+        self.b1, self.b2, self.eps = b1, b2, eps
+
+    def init(self, params: Tree) -> Dict[str, object]:
+        return {"count": 0,
+                "mu": tree_map(torch.zeros_like, params),
+                "nu": tree_map(torch.zeros_like, params)}
+
+    @torch.no_grad()
+    def apply(self, params: Tree, grads, state) -> Tuple[Tree, Dict]:
+        """Step every leaf of ``params`` by its gradient (``grads`` in
+        :func:`tree_leaves` order) and return (params, state), both
+        updated in place."""
+        count = state["count"] + 1
+        one = torch.tensor(1.0, dtype=torch.float32)
+        bc1 = one - torch.tensor(self.b1, dtype=torch.float32) ** count
+        bc2 = one - torch.tensor(self.b2, dtype=torch.float32) ** count
+        for p, g, m, v in zip(tree_leaves(params), grads,
+                              tree_leaves(state["mu"]),
+                              tree_leaves(state["nu"])):
+            def c(x):
+                # the constant rounded to p's dtype, as a host float
+                return torch.tensor(float(x), dtype=torch.float64).to(
+                    p.dtype).item()
+
+            m.mul_(c(self.b1)).add_(g * c(1 - self.b1))
+            v.mul_(c(self.b2)).add_(torch.square(g) * c(1 - self.b2))
+            m_hat = m / c(bc1)
+            v_hat = v / c(bc2)
+            u = m_hat / (torch.sqrt(v_hat) + c(self.eps))
+            u = u + c(self.weight_decay) * p
+            p.add_(u * c(-self.lr))
+        state["count"] = count
+        return params, state
+
+
+def adamw(lr: float = 3e-4, weight_decay: float = 0.1, **kw) -> AdamW:
+    return AdamW(lr, weight_decay, **kw)
+
+
+# -- train step ---------------------------------------------------------------
+
+
+def make_train_step(
+    loss_fn: Callable,             # (params, tokens) -> scalar loss
+    init_fn: Callable,             # generator -> params
+    optimizer: Optional[AdamW] = None,
+):
+    """(step, init_all, optimizer) with the reference's contract:
+    ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, the
+    parameters and moments updated in place (the single-device
+    counterpart of donating both); ``init_all(generator) -> (params,
+    opt_state)``."""
+    optimizer = optimizer or adamw(3e-4, weight_decay=0.1)
+
+    def step(params, opt_state, tokens):
+        leaves = list(tree_leaves(params))
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = loss_fn(params, tokens)
+        grads = torch.autograd.grad(loss, leaves)
+        params, opt_state = optimizer.apply(params, grads, opt_state)
+        return params, opt_state, loss.detach()
+
+    def init_all(generator: torch.Generator):
+        params = init_fn(generator)
+        return params, optimizer.init(params)
+
+    return step, init_all, optimizer

@@ -36,7 +36,10 @@ NVCC_FLAGS = (
 )
 
 # kernel name -> launches since the last reset_launches()
-LAUNCHES: Dict[str, int] = {"rms_norm_fwd": 0, "flash_fwd": 0}
+LAUNCHES: Dict[str, int] = {
+    "rms_norm_fwd": 0, "rms_norm_bwd": 0,
+    "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -46,8 +49,13 @@ _F = ctypes.c_float
 # ctypes would pass them as 32-bit ints and cut them
 _SIGNATURES = {
     "tpunet_rms_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
+    "tpunet_rms_norm_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "tpunet_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
     + [_LL] * 12 + [_F, _I, _P],
+    "tpunet_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_LL] * 15
+    + [_F, _I, _I, _P],
+    "tpunet_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18
+    + [_F, _I, _I, _P],
 }
 
 _lock = threading.Lock()

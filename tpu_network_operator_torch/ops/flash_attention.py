@@ -1,20 +1,26 @@
-"""Flash-attention forward: a hand-written CUDA kernel and its plain version.
+"""Flash attention: hand-written CUDA kernels and their plain versions.
 
-Counterpart of ``tpu_network_operator/ops/pallas_attention.py``'s forward.
-The kernel (``csrc/flash_fwd.cu``) runs an online softmax over streamed
-key tiles so the [S, S] score matrix never reaches device memory.  Beside
-it, :func:`_flash_fwd_plain` runs the same blockwise algorithm in plain
-PyTorch and rounds to bf16 where the TPU kernel does (q * scale before
-QKᵀ, the probabilities before PV), so the CPU tests hold it tightly to the
-Pallas kernel in interpret mode.
+Counterpart of ``tpu_network_operator/ops/pallas_attention.py``.  The
+forward kernel (``csrc/flash_fwd.cu``) runs an online softmax over
+streamed key tiles so the [S, S] score matrix never reaches device memory
+and saves the f32 log-sum-exp; the backward kernels (``csrc/flash_bwd.cu``)
+recompute the probabilities from it, one kernel for dQ and one for dK/dV
+(which also sums each GQA group of q-heads onto its kv-head).  Beside them,
+:func:`_flash_fwd_plain` and :func:`_flash_bwd_plain` run the same
+blockwise algorithms in plain PyTorch and round to bf16 where the TPU
+kernels do (q * scale, dO, the probabilities and dS before their
+products), so the CPU tests hold them tightly to the Pallas kernels in
+interpret mode.
 
-Dispatch is by the tensors' device: CPU tensors take the plain version,
-CUDA tensors the kernel, with no fallback between them and no switch.
-The kernel tiles at 64x64 on the card whatever ``block_q``/``block_k``
-say; those set the plain version's blocking and are validated on both
-paths (the sequence lengths must divide by them), so the same shapes
-route the same way.  The wrapper is forward-only in this slice and raises
-on inputs that require grad.
+:func:`flash_attention` is a ``torch.autograd.Function`` (the counterpart
+of the reference's ``custom_vjp`` around ``_flash_bhsd``).  Dispatch is by
+the tensors' device: CPU tensors take the plain versions, CUDA tensors the
+kernels, with no fallback between them and no switch.  The kernels tile at
+64x64 on the card whatever ``block_q``/``block_k`` say; those set the
+plain versions' blocking and are validated on both paths (the sequence
+lengths must divide by them), so the same shapes route the same way.
+:func:`chunk_fwd` and :func:`chunk_bwd` are the raw per-chunk seams (not
+differentiable) that ring attention combines with a global lse and delta.
 """
 
 from __future__ import annotations
@@ -42,6 +48,20 @@ def _block_sizes(seq_q: int, seq_k: int, block_q: int,
     return bq, bk
 
 
+def _repeat_heads(t, n_rep):
+    """[B, Hkv, S, D] -> [B, Hkv * n_rep, S, D]: q-head h reads kv-head
+    h // n_rep."""
+    b, hkv, s, d = t.shape
+    return t[:, :, None].expand(b, hkv, n_rep, s, d).reshape(b, hkv * n_rep,
+                                                             s, d)
+
+
+def _bf16(t):
+    """t rounded to bf16 and widened back to f32 (a TPU kernel's rounding
+    of a matmul operand)."""
+    return t.float().to(torch.bfloat16).float()
+
+
 def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
     """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] -> (o [B, H, Sq, D] in
     q.dtype, lse [B, H, Sq] f32).  Blockwise online softmax, f32 state."""
@@ -50,9 +70,7 @@ def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
     n_rep = h // hkv
     bq, bk = _block_sizes(sq, sk, block_q, block_k)
     scale = d ** -0.5
-    # GQA as a view: q-head h reads kv-head h // n_rep
-    kr = k[:, :, None].expand(b, hkv, n_rep, sk, d).reshape(b, h, sk, d)
-    vr = v[:, :, None].expand(b, hkv, n_rep, sk, d).reshape(b, h, sk, d)
+    kr, vr = _repeat_heads(k, n_rep), _repeat_heads(v, n_rep)
 
     outs, lses = [], []
     for i in range(sq // bq):
@@ -82,6 +100,118 @@ def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
     return torch.cat(outs, dim=2), torch.cat(lses, dim=2)
 
 
+class _BwdPlain:
+    """Shared set-up of the two plain backward passes: q, do [B, H, Sq, D];
+    k, v [B, Hkv, Sk, D]; lse, delta [B, H, Sq] f32."""
+
+    def __init__(self, q, k, v, do, lse, delta, block_q, block_k, causal):
+        self.b, self.h, self.sq, self.d = q.shape
+        self.hkv, self.sk = k.shape[1], k.shape[2]
+        self.bq, self.bk = _block_sizes(self.sq, self.sk, block_q, block_k)
+        self.scale = self.d ** -0.5
+        self.causal, self.device = causal, q.device
+        n_rep = self.h // self.hkv
+        self.k = _repeat_heads(k, n_rep).float()
+        self.v = _repeat_heads(v, n_rep).float()
+        self.qs = _bf16(q.float() * self.scale)
+        self.do = _bf16(do)
+        self.lse, self.delta = lse[..., None], delta[..., None]
+
+    def rows(self, t, i):
+        return t[:, :, i * self.bq:(i + 1) * self.bq]
+
+    def cols(self, t, j):
+        return t[:, :, j * self.bk:(j + 1) * self.bk]
+
+    def live(self, i, j):
+        return not self.causal or j * self.bk <= i * self.bq + self.bq - 1
+
+    def probs(self, qi, kj, i, j):
+        """P = exp(S - lse) of q block i and key block j, masked."""
+        s = qi @ kj.transpose(-1, -2)
+        if self.causal:
+            r = i * self.bq + torch.arange(self.bq, device=self.device)
+            c = j * self.bk + torch.arange(self.bk, device=self.device)
+            s = s.masked_fill(r[:, None] < c[None, :], NEG_INF)
+        return torch.exp(s - self.rows(self.lse, i))
+
+
+def _flash_bwd_dq_plain(bp: _BwdPlain, dq_dtype: torch.dtype):
+    """The reference's ``_dq_kernel`` pass: per q block, dQ summed over
+    its live key blocks, from k and v as given."""
+    dqs = []
+    for i in range(bp.sq // bp.bq):
+        qi, doi = bp.rows(bp.qs, i), bp.rows(bp.do, i)
+        acc = torch.zeros((bp.b, bp.h, bp.bq, bp.d), device=bp.device)
+        for j in range(bp.sk // bp.bk):
+            if not bp.live(i, j):
+                break
+            kj = bp.cols(bp.k, j)
+            p = bp.probs(qi, kj, i, j)
+            ds = p * (doi @ bp.cols(bp.v, j).transpose(-1, -2)
+                      - bp.rows(bp.delta, i))
+            acc = acc + _bf16(ds) @ kj
+        dqs.append((acc * bp.scale).to(dq_dtype))
+    return torch.cat(dqs, dim=2)
+
+
+def _flash_bwd_dkv_plain(bp: _BwdPlain):
+    """The reference's ``_dkv_kernel`` pass: per key block, dK and dV per
+    q-head summed over the live q blocks (k rounded to bf16 first, as the
+    kernel rounds it), then summed over each kv-head's group in f32."""
+    k16 = _bf16(bp.k)
+    dks, dvs = [], []
+    for j in range(bp.sk // bp.bk):
+        kj, vj = bp.cols(k16, j), bp.cols(bp.v, j)
+        dk = torch.zeros((bp.b, bp.h, bp.bk, bp.d), device=bp.device)
+        dv = torch.zeros_like(dk)
+        for i in range(bp.sq // bp.bq):
+            if not bp.live(i, j):
+                continue
+            qi, doi = bp.rows(bp.qs, i), bp.rows(bp.do, i)
+            p = bp.probs(qi, kj, i, j)
+            dv = dv + _bf16(p).transpose(-1, -2) @ doi
+            ds = p * (doi @ vj.transpose(-1, -2) - bp.rows(bp.delta, i))
+            dk = dk + _bf16(ds).transpose(-1, -2) @ qi
+        dks.append(dk)
+        dvs.append(dv)
+    n_rep = bp.h // bp.hkv
+    shape = (bp.b, bp.hkv, n_rep, bp.sk, bp.d)
+    return (torch.cat(dks, dim=2).reshape(shape).sum(dim=2),
+            torch.cat(dvs, dim=2).reshape(shape).sum(dim=2))
+
+
+def _flash_bwd_plain(q, k, v, do, lse, delta, *, block_q: int,
+                     block_k: int, causal: bool,
+                     dq_dtype: torch.dtype = torch.float32):
+    """q, do: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D]; lse, delta [B, H, Sq]
+    f32 -> (dq [B, H, Sq, D] in ``dq_dtype``, dk and dv [B, Hkv, Sk, D]
+    f32, summed over each kv-head's group of q-heads).
+
+    Two blockwise passes, as the reference's two kernels run them, each
+    rounding its matmul operands to bf16 where that kernel does:
+    :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`."""
+    bp = _BwdPlain(q, k, v, do, lse, delta, block_q, block_k, causal)
+    return (_flash_bwd_dq_plain(bp, dq_dtype), *_flash_bwd_dkv_plain(bp))
+
+
+def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """delta = rowsum(dO * O) in f32: [B, H, S, D] -> contiguous [B, H, S]
+    (the backward kernels' second statistic beside the lse).  Split out so
+    the ring path can compute it once from the global output."""
+    return (do.float() * out.float()).sum(dim=-1).contiguous()
+
+
+def _check_rows(*tensors) -> None:
+    for t in tensors:
+        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
+                or t.data_ptr() % 16:
+            raise ValueError(
+                "the flash kernels read 16-byte rows: head_dim stride 1, "
+                "other strides multiples of 8, 16-byte aligned data"
+            )
+
+
 def _check_kernel_inputs(q, k, v) -> None:
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
@@ -98,17 +228,38 @@ def _check_kernel_inputs(q, k, v) -> None:
             f"k/v of one shape, got q {tuple(q.shape)}, k {tuple(k.shape)}, "
             f"v {tuple(v.shape)}"
         )
-    for t in (q, k, v):
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
-            raise ValueError(
-                "the flash kernel reads 16-byte rows: head_dim stride 1, "
-                "other strides multiples of 8, 16-byte aligned data"
-            )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "the flash kernel is forward-only: its backward is not ported"
+    _check_rows(q, k, v)
+
+
+def _dims(q, k, seq_dim, head_dim):
+    b, d = q.shape[0], q.shape[-1]
+    sq, h = q.shape[seq_dim], q.shape[head_dim]
+    sk, hkv = k.shape[seq_dim], k.shape[head_dim]
+    if h % hkv:
+        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({hkv})")
+    return b, h, hkv, sq, sk, d
+
+
+def _check_bwd_inputs(q, k, v, do, lse, delta, seq_dim, head_dim):
+    _check_kernel_inputs(q, k, v)
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(
+            f"do must match q {tuple(q.shape)} {q.dtype}, got "
+            f"{tuple(do.shape)} {do.dtype}"
         )
+    _check_rows(do)
+    b, h, _, sq, _, _ = _dims(q, k, seq_dim, head_dim)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != (b, h, sq) or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(
+                f"{name} must be contiguous [{b}, {h}, {sq}] float32, got "
+                f"{tuple(t.shape)} {t.dtype}"
+            )
+
+
+def _strides(t, seq_dim, head_dim):
+    return t.stride(0), t.stride(seq_dim), t.stride(head_dim)
 
 
 def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
@@ -116,16 +267,12 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
     ``seq_dim``/``head_dim`` (1/2 for [B,S,H,D], 2/1 for [B,H,S,D]).
     Returns (o in q's layout, lse [B, H, Sq] f32)."""
     _check_kernel_inputs(q, k, v)
-    b, d = q.shape[0], q.shape[-1]
-    sq, h = q.shape[seq_dim], q.shape[head_dim]
-    sk, hkv = k.shape[seq_dim], k.shape[head_dim]
-    if h % hkv:
-        raise ValueError(f"q heads ({h}) must be a multiple of kv heads ({hkv})")
+    b, h, hkv, sq, sk, d = _dims(q, k, seq_dim, head_dim)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
 
     def strides(t):
-        return t.stride(0), t.stride(seq_dim), t.stride(head_dim)
+        return _strides(t, seq_dim, head_dim)
 
     err = _kernels.lib().tpunet_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -138,6 +285,91 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
     return o, lse
 
 
+def _flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
+                         seq_dim: int, head_dim: int, out_f32: bool):
+    """Launch the dQ kernel (layout as in :func:`_flash_fwd_kernel`):
+    dq in q's layout, f32 if ``out_f32`` else bf16."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, seq_dim, head_dim)
+    b, h, hkv, sq, sk, d = _dims(q, k, seq_dim, head_dim)
+    dq = torch.empty(q.shape, device=q.device,
+                     dtype=torch.float32 if out_f32 else q.dtype)
+    err = _kernels.lib().tpunet_flash_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        b, h, hkv, sq, sk, d,
+        *(st for t in (q, k, v, do, dq)
+          for st in _strides(t, seq_dim, head_dim)),
+        float(d ** -0.5), int(causal), int(out_f32),
+        _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_bwd_dq")
+    _kernels.count_launch("flash_bwd_dq")
+    return dq
+
+
+def _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
+                          seq_dim: int, head_dim: int, out_f32: bool):
+    """Launch the dK/dV kernel: (dk, dv) in k's layout, summed over each
+    kv-head's group of q-heads, f32 if ``out_f32`` else bf16."""
+    _check_bwd_inputs(q, k, v, do, lse, delta, seq_dim, head_dim)
+    b, h, hkv, sq, sk, d = _dims(q, k, seq_dim, head_dim)
+    dtype = torch.float32 if out_f32 else k.dtype
+    dk = torch.empty(k.shape, device=k.device, dtype=dtype)
+    dv = torch.empty(k.shape, device=k.device, dtype=dtype)
+    err = _kernels.lib().tpunet_flash_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b, h, hkv, sq, sk, d,
+        *(st for t in (q, k, v, do, dk, dv)
+          for st in _strides(t, seq_dim, head_dim)),
+        float(d ** -0.5), int(causal), int(out_f32),
+        _kernels.stream_handle(q.device),
+    )
+    _kernels.check(err, "flash_bwd_dkv")
+    _kernels.count_launch("flash_bwd_dkv")
+    return dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention on [B, S, H, D] q and [B, S, Hkv, D] k/v, saving
+    q, k, v, o and the f32 lse for the backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, block_q, block_k):
+        if q.device.type == "cuda":
+            o, lse = _flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
+                                       head_dim=2)
+        else:
+            o, lse = _flash_fwd_plain(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                block_q=block_q, block_k=block_k, causal=causal,
+            )
+            o = o.transpose(1, 2)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.blocks = causal, (block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = attention_delta(o.transpose(1, 2), do.transpose(1, 2))
+        if q.device.type == "cuda":
+            kw = dict(causal=ctx.causal, seq_dim=1, head_dim=2, out_f32=False)
+            dq = _flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+            dk, dv = _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+            return dq, dk, dv, None, None, None
+        # the reference's dense backward: dq in q.dtype, dk/dv summed in
+        # f32 and cast to k.dtype
+        dq, dk, dv = _flash_bwd_plain(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            do.transpose(1, 2), lse, delta, block_q=ctx.blocks[0],
+            block_k=ctx.blocks[1], causal=ctx.causal, dq_dtype=q.dtype,
+        )
+        return (dq.transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
+                dv.to(v.dtype).transpose(1, 2), None, None, None)
+
+
 def flash_attention(
     q: torch.Tensor,                   # [B, S, H, D]
     k: torch.Tensor,                   # [B, S, Hkv, D]
@@ -147,16 +379,10 @@ def flash_attention(
     block_k: int = 512,
     causal: bool = True,
 ) -> torch.Tensor:
-    """Drop-in for :func:`.attention.causal_attention` (same layout)."""
+    """Drop-in for :func:`.attention.causal_attention` (same layout),
+    differentiable in q, k and v."""
     _block_sizes(q.shape[1], k.shape[1], block_q, block_k)
-    if q.device.type == "cuda":
-        return _flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
-                                 head_dim=2)[0]
-    out, _ = _flash_fwd_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        block_q=block_q, block_k=block_k, causal=causal,
-    )
-    return out.transpose(1, 2)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
 
 
 def chunk_fwd(q, k, v, *, causal: bool,
@@ -171,6 +397,21 @@ def chunk_fwd(q, k, v, *, causal: bool,
                                  head_dim=1)
     return _flash_fwd_plain(q, k, v, block_q=block_q, block_k=block_k,
                             causal=causal)
+
+
+def chunk_bwd(q, k, v, do, lse, delta, *, causal: bool,
+              block_q: int = 512, block_k: int = 512):
+    """One K/V chunk backward in the [B, H, S, D] layout with the GLOBAL
+    lse and delta ([B, H, Sq] f32): f32 (dq [B, H, Sq, D], dk and dv
+    [B, Hkv, Sk, D] summed over each kv-head's group).  Summing these over
+    all chunks gives the full-attention gradient.  Not differentiable."""
+    _block_sizes(q.shape[2], k.shape[2], block_q, block_k)
+    if q.device.type == "cuda":
+        kw = dict(causal=causal, seq_dim=2, head_dim=1, out_f32=True)
+        dq = _flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+        return (dq, *_flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    return _flash_bwd_plain(q, k, v, do, lse, delta, block_q=block_q,
+                            block_k=block_k, causal=causal)
 
 
 def supports(seq_q: int, seq_k: int, head_dim: int,

@@ -1,13 +1,16 @@
 """Validation-workload runner of the PyTorch port.
 
-``python -m tpu_network_operator_torch.workload <subcommand>``; this slice
-has one subcommand:
+``python -m tpu_network_operator_torch.workload <subcommand>``, on one
+device (``--device``, default cuda; ``cpu`` runs the kernels' plain
+versions), with random weights:
 
 * ``generate`` -- KV-cache decode throughput (tokens/sec) of a Llama-3
-  preset with random weights on one device (``--device``, default cuda;
-  ``cpu`` runs the kernels' plain versions).
+  preset;
+* ``train`` -- training throughput (tokens/sec/chip) of a Llama-3 preset
+  with AdamW on a fixed synthetic batch.
 
-Training, the collectives sweep and the exec bench come with later slices.
+The mesh flags, ``--data``, checkpoints, MoE, the 8-bit optimizer, the
+collectives sweep and the exec bench come with later slices.
 """
 
 from .cli import build_parser, main

@@ -6,6 +6,7 @@ import argparse
 
 from .common import LLAMA_PRESET_NAMES
 from .generate import cmd_generate
+from .train import cmd_train
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -39,6 +40,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="int8 block-quantizes the KV cache: half the "
                         "cache bytes at KV-quant noise")
     g.set_defaults(fn=cmd_generate)
+
+    t = sub.add_parser("train", help="training throughput")
+    t.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions (default: cuda)")
+    t.add_argument("--model", choices=["llama"], default="llama")
+    t.add_argument("--preset", default="tiny", choices=LLAMA_PRESET_NAMES)
+    t.add_argument("--steps", type=int, default=10)
+    t.add_argument("--batch", type=int, default=8)
+    t.add_argument("--seq-len", type=int, default=128)
+    t.add_argument("--optimizer", choices=["adamw"], default="adamw",
+                   help="optax.adamw(3e-4, weight_decay=0.1) semantics")
+    t.set_defaults(fn=cmd_train)
     return p
 
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 import json
 import sys
 
+import torch
+
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
@@ -13,6 +15,12 @@ def log(msg: str) -> None:
 
 def emit(payload: dict) -> None:
     print(json.dumps(payload))
+
+
+def sync(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def llama_presets():

@@ -7,12 +7,7 @@ import time
 import torch
 
 from .. import resolve_device
-from .common import emit, llama_presets, log, pick_preset
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+from .common import emit, llama_presets, log, pick_preset, sync
 
 
 def cmd_generate(args) -> int:
@@ -32,7 +27,7 @@ def cmd_generate(args) -> int:
 
     def run_once():
         out = gen(params, prompt, torch.Generator(device).manual_seed(1))
-        _sync(device)
+        sync(device)
         return out
 
     t0 = time.perf_counter()
