@@ -22,8 +22,21 @@ Phases, each printing JSON lines; any failure exits non-zero:
    profiled step;
 7. train_card_vs_cpu: one loss and gradient at ``llama3-1b`` widths with 2
    layers from the same bf16 weights on the card and on the CPU;
-8. the kernel table: each kernel's time at its path's shapes beside its
-   bound, its plain version's time and one PyTorch library call's.
+8. train_adam8: the ``llama3-1b+ffn+adam8`` rung at full width and depth,
+   batch 4 x 2048, ``xent_chunk`` 512, ``remat_policy`` "ffn",
+   ``adamw8bit(3e-4, 0.1)``: a warm-up step, then timed steps on one fixed
+   batch with every kernel's launches per step read and the loss required
+   to fall, the moments' bytes beside bf16 moments'; then one profiled
+   step;
+9. checkpoint: ``llama3-1b`` widths with 2 layers and adamw8bit, batches
+   from a token file through ``device_batches``: 2 steps, a save, 1 more
+   step; the save restored in place into a fresh ``init_all`` state must be
+   the same bits, and the resumed step must give the same loss;
+10. the kernel table: each kernel's time at its path's shapes beside its
+    bound, its plain version's time and one PyTorch library call's.
+
+Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
+steps with carried state, bit for bit, and the table gains its row.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -35,11 +48,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 import torch
 
@@ -50,7 +67,13 @@ from tpu_network_operator_torch.models.generate import (  # noqa: E402
     generate,
     init_cache,
 )
+from tpu_network_operator_torch import data  # noqa: E402
+from tpu_network_operator_torch.models import optim8bit  # noqa: E402
 from tpu_network_operator_torch.models import training  # noqa: E402
+from tpu_network_operator_torch.models.checkpoint import (  # noqa: E402
+    TrainCheckpointer,
+    flat_state,
+)
 from tpu_network_operator_torch.models.llama import (  # noqa: E402
     LlamaConfig,
     init_params,
@@ -66,6 +89,11 @@ BATCH, PROMPT, NEW_TOKENS = 64, 128, 256
 SEED = 0
 # the training cell: the repo's headline train rung (bench.py llama3-1b)
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 6, 2048, 1024, 3
+# the 8-bit AdamW cell: bench.py's llama3-1b+ffn+adam8 rung
+A8_BATCH, A8_SEQ, A8_CHUNK, A8_LR, A8_WD = 4, 2048, 512, 3e-4, 0.1
+# the checkpoint phase: llama3-1b widths, 2 layers, batches of 2 x 1024
+CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 1024
+SCRATCH = Path(__file__).resolve().parent / ".chip_smoke_tmp"
 
 # published dense peaks per SKU: (device memory B/s, bf16 tensor FLOP/s,
 # f32 non-tensor FLOP/s) -- NVIDIA data sheets
@@ -99,6 +127,19 @@ RMS_DS_FRAC = 1e-2
 # ~1.3e-2 in relative norm between the port and JAX in bf16)
 TRAIN_LOSS_REL = 1e-2
 TRAIN_GRAD_REL = 5e-2
+# 8-bit AdamW kernel vs plain: both round every f32 operation on its own
+# (no FMA contraction, true divisions, a correctly rounded sqrt), so the
+# requirement is the same bits.  Were it missed, the run would say how
+# many values differ and hold to the JAX suite's bound between its own two
+# paths (tests/test_optim8bit.py:133-151): update rtol 1e-2 (atol 1e-6),
+# int8 m codes equal, scales rtol 1e-6, v codes within one e4m3 step
+A8_TOL = {"update_rtol": 1e-2, "update_atol": 1e-6, "scale_rtol": 1e-6,
+          "v_code_rtol": 0.07}
+# checkpoint resume: the restored state and the resumed loss are the same
+# bits; the parameters after the resumed step may differ where the
+# embedding gradient's scatter adds in another order: each weight within
+# 2 * lr (a moment's code one step away) plus one bf16 ulp of itself
+CKPT_PARAM_ATOL = 2 * A8_LR
 
 
 def emit(payload: dict) -> None:
@@ -367,7 +408,8 @@ def phase_kernels_bwd():
 def kernel_group(name: str) -> str:
     """A device kernel's group for the time breakdown."""
     for key, group in (("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
-                       ("rms_norm", "rms_norm"), ("nvjet", "gemm"),
+                       ("rms_norm", "rms_norm"), ("adam8", "adam8_fused"),
+                       ("nvjet", "gemm"),
                        ("gemm", "gemm"), ("cutlass", "gemm"),
                        ("at::native", "aten elementwise/reduce")):
         if key in name:
@@ -471,7 +513,8 @@ def phase_generate():
           "generated ids outside the vocabulary")
     want = {"flash_fwd": cfg.layers,
             "rms_norm_fwd": (2 * cfg.layers + 1) * forward_calls,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0}
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
+            "adam8_fused": 0}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     emit({"phase": "generate", "preset": "llama3-1b", "layers": cfg.layers,
           "params": cfg.num_params(), "batch": BATCH, "prompt": PROMPT,
@@ -519,6 +562,17 @@ def phase_card_vs_cpu():
     check(first_equal, "card vs CPU: first greedy token differs")
 
 
+def remat_launches(n: int) -> dict:
+    """Flash and RMSNorm launches per train step of ``n`` layers under
+    "full" or "ffn" remat: eager recompute replays each layer's forward up
+    to its last needed tensor, so every layer's attention and both its
+    norms run twice (the selective "ffn" policy takes its named tensors
+    from the cache but still runs the ops that feed them), the final norm
+    once; one backward each."""
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1}
+
+
 def train_cfg(**kw) -> LlamaConfig:
     """The training cell: llama3-1b with full remat and chunked xent."""
     return dataclasses.replace(LlamaConfig.llama3_1b(), **{
@@ -552,10 +606,7 @@ def phase_train() -> dict:
         per_step.append(dict(_kernels.LAUNCHES))
     peak = torch.cuda.max_memory_allocated()
 
-    # per step under full remat: every layer's forward runs twice (once
-    # more in the backward's recompute), the final norm once
-    want = {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-            "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1}
+    want = {**remat_launches(n), "adam8_fused": 0}
     check(all(p == want for p in per_step),
           f"train-step launches {per_step}, expected {want} per step")
     check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
@@ -611,6 +662,271 @@ def phase_train_card_vs_cpu():
           f"train card vs CPU gradient of {worst}: {grad_rel[worst]}")
 
 
+# -- 8-bit AdamW ---------------------------------------------------------------
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """t's raw bits as an integer tensor, for equality that sees every bit."""
+    return t.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                   8: torch.int64}[t.element_size()])
+
+
+def e4m3_limit_grad() -> float:
+    """A bf16 gradient whose first-step v = (1 - b2) g^2, divided by its own
+    block scale v / 448, lands above 448 in f32: the e4m3 conversion must
+    saturate it to the format's limit, not overflow."""
+    g = torch.arange(0x3F00, 0x4000, dtype=torch.int32).to(torch.int16)
+    g = g.view(torch.bfloat16).float()
+    v = g * optim8bit.adamw8bit().consts(1).omb2 * g
+    return g[(v / (v / torch.tensor(448.0))) > 448][0].item()
+
+
+def adam8_grad(shape, case: str, gen) -> torch.Tensor:
+    g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
+    if case == "zero_block":
+        g.view(-1, g.shape[-1])[0, :256] = 0.0
+    elif case == "e4m3_limit":
+        g.view(-1, 256).mul_(0.1)[:, 0] = e4m3_limit_grad()
+    return g.bfloat16()
+
+
+def adam8_bytes(p: torch.Tensor) -> int:
+    """Bytes one adam8_fused launch must move for leaf p: p, g and both
+    codes read, the update and both codes written, both f32 block scales
+    read and written."""
+    last = p.shape[-1] if p.dim() else 1
+    nb = p.numel() // optim8bit._leaf_block(last, optim8bit.BLOCK)
+    return p.numel() * (3 * p.element_size() + 4) + nb * 16
+
+
+ADAM8_OPS = 30   # f32 operations per value (dequantize, step, update, requantize)
+A8_NAMES = ("update", "param", "m_codes", "m_scales", "v_codes", "v_scales")
+
+
+def _a8_leaf(p: torch.Tensor):
+    st = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD).init({"p": p})
+    return p, st["m"]["p"], st["v"]["p"]
+
+
+def _a8_mismatches(out, ref) -> dict:
+    return {n: int((bits(a) != bits(b)).sum()) for n, a, b in
+            zip(A8_NAMES, out, ref)}
+
+
+def _a8_within_tol(out, ref) -> bool:
+    upd, _, mq, ms, vq, vs = out
+    rupd, _, rmq, rms, rvq, rvs = ref
+    return (torch.allclose(upd.float(), rupd.float(),
+                           rtol=A8_TOL["update_rtol"],
+                           atol=A8_TOL["update_atol"])
+            and torch.equal(mq, rmq)
+            and torch.allclose(ms, rms, rtol=A8_TOL["scale_rtol"], atol=0)
+            and torch.allclose(vs, rvs, rtol=A8_TOL["scale_rtol"], atol=0)
+            and torch.allclose(vq.float(), rvq.float(),
+                               rtol=A8_TOL["v_code_rtol"], atol=0))
+
+
+def phase_kernels_adam8():
+    """adam8_fused against its plain version on the card, three steps with
+    carried state, and a second kernel run that must repeat its bits."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    cases = [((128256, 2048), "random"), ((16, 2048, 512), "random"),
+             ((2048,), "random"), ((3, 77), "random"),
+             ((8, 512), "zero_block"), ((16, 256), "e4m3_limit")]
+    for shape, case in cases:
+        p0 = (torch.randn(shape, device="cuda", generator=gen) * 0.1
+              ).bfloat16()
+        runs = {name: _a8_leaf(p0.clone())
+                for name in ("kernel", "repeat", "plain")}
+        steps, ok = [], True
+        for i in (1, 2, 3):
+            g = adam8_grad(shape, case, gen)
+            k = opt.consts(i)
+            outs = {}
+            for name, (p, m, v) in runs.items():
+                fn = (optim8bit._leaf_update_plain if name == "plain"
+                      else optim8bit.adam8_fused)
+                upd = fn(p, g, m, v, k)
+                p.add_(upd)
+                outs[name] = (upd, p, m.q, m.scale, v.q, v.scale)
+            torch.cuda.synchronize()
+            mism = _a8_mismatches(outs["kernel"], outs["plain"])
+            repeat = _a8_mismatches(outs["kernel"], outs["repeat"])
+            identical = not any(mism.values())
+            ok = ok and not any(repeat.values()) and (
+                identical or _a8_within_tol(outs["kernel"], outs["plain"]))
+            if case == "e4m3_limit" and i == 1:
+                top = outs["kernel"][4].view(-1, 256)[:, 0].float()
+                ok = ok and bool(torch.all(top == 448.0))
+            steps.append({"step": i, "bit_identical": identical,
+                          "mismatches": mism, "repeat_mismatches": repeat,
+                          "max_abs_err_update": max_err(outs["kernel"][0],
+                                                        outs["plain"][0])})
+        if case == "zero_block":
+            _, m, v = runs["kernel"]
+            ok = ok and m.scale.view(-1)[0].item() == 1.0 \
+                and v.scale.view(-1)[0].item() == 1.0
+        emit({"phase": "kernels", "kernel": "adam8_fused",
+              "shape": list(shape), "case": case, "steps": steps,
+              "tol_if_not_bit_identical": A8_TOL, "ok": ok})
+        check(ok, f"adam8_fused disagrees with its plain version at "
+                  f"{shape} ({case})")
+        del runs, outs, p0
+    torch.cuda.empty_cache()
+
+
+def phase_train_adam8(name: str) -> dict:
+    bw, _, _ = peaks(name)
+    cfg = train_cfg(remat_policy="ffn", xent_chunk=A8_CHUNK)
+    n = cfg.layers
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    step, init_all, _ = make_train_step(cfg, optimizer=opt, device="cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED + 9)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_all(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (A8_BATCH, A8_SEQ + 1),
+                           device="cuda", generator=gen)
+    leaves = list(training.tree_leaves(params))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, loss = step(params, opt_state, tokens)
+    losses = [loss.item()]
+    first_s = time.perf_counter() - t0
+
+    step_s, per_step = [], []
+    for _ in range(TRAIN_STEPS):
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(loss.item())          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(dict(_kernels.LAUNCHES))
+    peak = torch.cuda.max_memory_allocated()
+
+    # the "ffn" policy replays as "full" does; one update launch per leaf
+    want = {**remat_launches(n), "adam8_fused": len(leaves)}
+    check(all(p == want for p in per_step),
+          f"adam8 train-step launches {per_step}, expected {want} per step")
+    check(all(math.isfinite(v) for v in losses), f"adam8 losses {losses}")
+    check(losses[-1] < losses[0],
+          f"the adam8 loss did not fall on the fixed batch: {losses}")
+    moments = optim8bit.moment_bytes(opt_state)
+    bf16_moments = 2 * 2 * cfg.num_params()      # AdamW's m and v in bf16
+    med = statistics.median(step_s)
+    emit({"phase": "train_adam8", "preset": "llama3-1b", "layers": n,
+          "params": cfg.num_params(), "batch": A8_BATCH, "seq": A8_SEQ,
+          "xent_chunk": cfg.xent_chunk, "remat_policy": cfg.remat_policy,
+          "optimizer": f"adamw8bit({A8_LR}, {A8_WD})",
+          "first_step_s": first_s, "step_s": step_s, "median_step_s": med,
+          "tokens_per_s": A8_BATCH * A8_SEQ / med, "losses": losses,
+          "launches_per_step": per_step[-1],
+          "peak_mem_gib": peak / 2**30, "moment_bytes": moments,
+          "adamw_bf16_moment_bytes": bf16_moments,
+          "moment_bytes_ratio": moments / bf16_moments})
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    prof = profile_steps(run, 1)
+    adam = {"launches": len(leaves),
+            "device_ms": prof["ms_per_step_by_group"].get("adam8_fused"),
+            "bound_ms": sum(adam8_bytes(p) for p in leaves) / bw * 1e3,
+            "bound_by": "bytes"}
+    busy, dev_ms = prof["device_busy_share"], prof["device_ms_per_step"]
+    emit({"phase": "profile_train_adam8", **prof,
+          "device_idle_share": None if busy is None else 1 - busy,
+          # the profiler's own host cost is in its wall time: the same
+          # device time over the unprofiled median step
+          "device_idle_share_unprofiled": None if dev_ms is None
+          else 1 - dev_ms / (med * 1e3),
+          "adam8_fused_per_step": adam})
+    del params, opt_state, step, init_all, leaves
+    torch.cuda.empty_cache()
+    return {"launches_per_step": per_step[-1], "adam8_per_step": adam}
+
+
+def phase_checkpoint():
+    """Save at step 2, restore into a fresh init, resume step 3."""
+    cfg = train_cfg(layers=CKPT_LAYERS, remat_policy="ffn",
+                    xent_chunk=A8_CHUNK)
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    step, init_all, _ = make_train_step(cfg, optimizer=opt, device="cuda")
+    SCRATCH.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        path = tmp / "tokens.bin"
+        np.random.default_rng(SEED + 10).integers(
+            0, cfg.vocab_size, 1 << 22, dtype=np.uint32).tofile(path)
+        source = data.MemmapTokens(str(path), vocab_size=cfg.vocab_size)
+        dcfg = data.DataConfig(batch=CKPT_BATCH, seq_len=CKPT_SEQ, seed=SEED)
+        batches = data.device_batches(source, dcfg, "cuda")
+        params, opt_state = init_all(
+            torch.Generator("cuda").manual_seed(SEED + 11))
+        losses = []
+        with TrainCheckpointer(tmp / "ckpt") as ckpt:
+            for _ in range(2):
+                params, opt_state, loss = step(params, opt_state,
+                                               next(batches))
+                losses.append(loss.item())
+            t0 = time.perf_counter()
+            ckpt.save(2, params, opt_state)
+            save_s = time.perf_counter() - t0
+            saved = {k: t.to("cpu", copy=True)
+                     for k, t in flat_state(params, opt_state).items()}
+            params, opt_state, loss = step(params, opt_state, next(batches))
+            loss_3 = loss.item()
+            after = {k: t.to("cpu", copy=True) for k, t in
+                     flat_state(params, {}).items()}
+            del params, opt_state
+            t0 = time.perf_counter()
+            ckpt.wait()
+            write_s = time.perf_counter() - t0
+            fresh = init_all(torch.Generator("cuda").manual_seed(SEED + 12))
+            t0 = time.perf_counter()
+            at, params, opt_state = ckpt.restore(fresh)
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+        restored = flat_state(params, opt_state)
+        differ = {k: int((bits(restored[k].cpu()) != bits(t)).sum())
+                  for k, t in saved.items()}
+        resumed = data.device_batches(source, dcfg, "cuda", start_step=at)
+        params, opt_state, loss = step(params, opt_state, next(resumed))
+        loss_resumed = loss.item()
+        worst, same = {}, 0
+        for k, t in flat_state(params, {}).items():
+            ref = after[k].float()
+            err = (t.float().cpu() - ref).abs()
+            worst[k] = err.max().item()
+            same += int(torch.equal(bits(t.cpu()), bits(after[k])))
+            check(bool(torch.all(err <= CKPT_PARAM_ATOL
+                                 + 2.0 ** -8 * ref.abs())),
+                  f"resumed step's {k} off by {worst[k]}")
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*")
+                         if f.is_file())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit({"phase": "checkpoint", "layers": cfg.layers,
+          "batch": CKPT_BATCH, "seq": CKPT_SEQ, "losses": losses + [loss_3],
+          "resumed_from": at, "count": opt_state["count"],
+          "round_trip_mismatched_values": sum(differ.values()),
+          "loss_uninterrupted": loss_3, "loss_resumed": loss_resumed,
+          "params_bit_identical_after_resume": f"{same} of {len(after)}",
+          "params_max_abs_diff_after_resume": worst,
+          "tol": {"atol": CKPT_PARAM_ATOL, "rtol_bf16_ulp": 2.0 ** -8},
+          "checkpoint_bytes": ckpt_bytes, "save_returns_s": save_s,
+          "write_wait_s": write_s, "restore_s": restore_s})
+    check(at == 2 and opt_state["count"] == 3, "resumed at the wrong step")
+    check(not any(differ.values()),
+          f"checkpoint round trip changed {differ}")
+    check(loss_resumed == loss_3,
+          f"resumed loss {loss_resumed} != uninterrupted {loss_3}")
+    del params, opt_state, fresh, step, init_all
+    torch.cuda.empty_cache()
+
+
 def _leaf_names(tree, prefix=""):
     """Key paths in training.tree_leaves order."""
     for k, v in tree.items():
@@ -661,7 +977,8 @@ def _sdpa_backward_ms(q, k, v, do):
     return None, {"backend": None}
 
 
-def phase_table(name: str, launches: dict, train_launches: dict):
+def phase_table(name: str, launches: dict, train_launches: dict,
+                adam8: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -809,6 +1126,38 @@ def phase_table(name: str, launches: dict, train_launches: dict):
         **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
                  bw, bf16_peak),
     })
+    del inputs, q, k, v, do, lse, delta, bp
+
+    # -- 8-bit AdamW at the largest leaf (embed and lm_head), moments
+    # non-zero from one step; each timed call steps the state in place
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    shape = (cfg.vocab_size, cfg.hidden)
+    p = (torch.randn(shape, device="cuda", generator=gen) * 0.1).bfloat16()
+    g = adam8_grad(shape, "random", gen)
+    _, m, v = _a8_leaf(p)
+    optim8bit.adam8_fused(p, g, m, v, opt.consts(1))
+    m2, v2 = (optim8bit.QTensor(t.q.clone(), t.scale.clone()) for t in (m, v))
+    kc = opt.consts(2)
+    upd = optim8bit.adam8_fused(p, g, m, v, kc)
+    ref = optim8bit._leaf_update_plain(p, g, m2, v2, kc)
+    check(torch.equal(bits(upd), bits(ref)) and torch.equal(m.q, m2.q),
+          "adam8_fused disagrees with its plain version at the largest leaf")
+    rows.append({
+        "name": "adam8_fused", "route": "cuda",
+        "source": "tpu_network_operator_torch/ops/csrc/adam8_fused.cu",
+        "replaces": "tpu_network_operator/models/optim8bit.py:167",
+        "launches": adam8["launches_per_step"]["adam8_fused"],
+        "shape": list(shape), "max_abs_err": max_err(upd, ref),
+        "ms": time_ms(lambda: optim8bit.adam8_fused(p, g, m, v, kc)),
+        "plain_ms": time_ms_eager(
+            lambda: optim8bit._leaf_update_plain(p, g, m2, v2, kc),
+            iters=3, reps=3),
+        **_bound(adam8_bytes(p), ADAM8_OPS * p.numel(), bw, f32_peak),
+        "library_ms": None,
+        "library": "none: no PyTorch call computes block-quantized 8-bit "
+                   "AdamW",
+        "per_step": adam8["adam8_per_step"],
+    })
     emit({"kernels": rows})
 
 
@@ -817,11 +1166,14 @@ def main() -> int:
     phase_build()
     phase_kernels()
     phase_kernels_bwd()
+    phase_kernels_adam8()
     launches = phase_generate()
     phase_card_vs_cpu()
     train_launches = phase_train()
     phase_train_card_vs_cpu()
-    phase_table(name, launches, train_launches)
+    adam8 = phase_train_adam8(name)
+    phase_checkpoint()
+    phase_table(name, launches, train_launches, adam8)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

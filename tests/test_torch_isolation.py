@@ -28,6 +28,8 @@ def test_port_imports_no_jax_and_no_reference_package():
     mods = port_modules() + ["chip_smoke"]
     assert f"{PACKAGE}.ops.flash_attention" in mods
     assert f"{PACKAGE}.workload.__main__" in mods
+    assert {f"{PACKAGE}.data", f"{PACKAGE}.models.optim8bit",
+            f"{PACKAGE}.models.checkpoint"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -47,6 +49,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_network_operator_torch import resolve_device
     from tpu_network_operator_torch.models import generate as tgen
     from tpu_network_operator_torch.models import llama as tllama
+    from tpu_network_operator_torch.models import optim8bit as topt
     from tpu_network_operator_torch.workload import cli
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -63,12 +66,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tgen.init_cache(cfg, 1, 4)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["generate", "--preset", "tiny"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--preset", "tiny", "--optimizer", "adam8bit"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tllama.make_train_step(cfg, optimizer="adam8bit")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        topt.adam8_state_from_jax(None)
     assert resolve_device("cpu") == torch.device("cpu")
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     # on the CPU the dispatchers take the plain versions; the kernel
     # wrappers themselves accept only CUDA tensors
+    from tpu_network_operator_torch.models import optim8bit as topt
     from tpu_network_operator_torch.ops import flash_attention as tfa
     from tpu_network_operator_torch.ops import norms as tnorms
 
@@ -78,3 +88,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
         tfa._flash_fwd_kernel(q, q, q, causal=True, seq_dim=1, head_dim=2)
+    p = torch.zeros(4, 256, dtype=torch.bfloat16)
+    opt = topt.adamw8bit()
+    state = opt.init({"p": p})
+    with pytest.raises(ValueError, match="CUDA"):
+        topt.adam8_fused(p, p, state["m"]["p"], state["v"]["p"],
+                         opt.consts(1))

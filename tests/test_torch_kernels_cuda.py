@@ -20,6 +20,7 @@ import torch
 
 from tpu_network_operator_torch.models import generate as tgen
 from tpu_network_operator_torch.models import llama as tllama
+from tpu_network_operator_torch.models import optim8bit as topt
 from tpu_network_operator_torch.ops import _kernels
 from tpu_network_operator_torch.ops import flash_attention as tfa
 from tpu_network_operator_torch.ops import norms as tnorms
@@ -156,7 +157,7 @@ def test_generate_on_card_matches_cpu_and_counts(cuda):
     assert _kernels.LAUNCHES == {"flash_fwd": cfg.layers,
                                  "rms_norm_fwd": (2 * cfg.layers + 1) * 6,
                                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                 "rms_norm_bwd": 0}
+                                 "rms_norm_bwd": 0, "adam8_fused": 0}
     with torch.inference_mode():
         lg = {dev: tgen.forward_with_cache(
             p, prompt.to(dev), tgen.init_cache(cfg, 2, 134, device=dev), 0,
@@ -325,7 +326,176 @@ def test_train_step_on_card_matches_cpu(cuda):
                 "flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
                 "flash_bwd_dkv": cfg.layers,
                 "rms_norm_fwd": 4 * cfg.layers + 1,
-                "rms_norm_bwd": 2 * cfg.layers + 1}
+                "rms_norm_bwd": 2 * cfg.layers + 1, "adam8_fused": 0}
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-2 * abs(out["cpu"][0])
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         assert _rel(g.cpu(), r) < 3e-2
+
+
+# -- 8-bit AdamW --------------------------------------------------------------
+
+
+def _e4m3_limit_grad() -> float:
+    """A bf16 gradient g whose first-step v = (1 - b2) g^2, divided by its
+    own block scale v / 448, lands above 448 in f32: the e4m3 conversion
+    must saturate to 448, not overflow."""
+    g = torch.arange(0x3F00, 0x4000, dtype=torch.int32).to(torch.int16)
+    g = g.view(torch.bfloat16).float()
+    v = g * topt.adamw8bit().consts(1).omb2 * g
+    return g[(v / (v / torch.tensor(448.0))) > 448][0].item()
+
+
+def _adam8_grads(shape, dtype, gen, steps, case="random"):
+    grads = []
+    for _ in range(steps):
+        g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
+        if case == "zero_block":
+            g.view(-1, g.shape[-1])[0, :256] = 0.0
+        if case == "e4m3_limit":
+            g.view(-1, 256).mul_(0.1)[:, 0] = _e4m3_limit_grad()
+        grads.append(g.to(dtype))
+    return grads
+
+
+def _adam8_run(shape, dtype, grads, kernel: bool, seed=0):
+    """Steps with carried state through the kernel or the plain version;
+    the (update, codes, scales) of every step."""
+    gen = torch.Generator("cuda").manual_seed(seed)
+    p = (torch.randn(shape, device="cuda", generator=gen) * 0.1).to(dtype)
+    opt = topt.adamw8bit(3e-4, weight_decay=0.1)
+    state = opt.init({"p": p})
+    m, v = state["m"]["p"], state["v"]["p"]
+    fn = topt.adam8_fused if kernel else topt._leaf_update_plain
+    out = []
+    for i, g in enumerate(grads, start=1):
+        upd = fn(p, g, m, v, opt.consts(i))
+        p.add_(upd)
+        out.append([t.clone() for t in (upd, p, m.q, m.scale, v.q, v.scale)])
+    return out
+
+
+def _bits(t):
+    if t.element_size() == 1:
+        return t.view(torch.uint8)
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("shape,case", [
+    ((64, 2048), "random"), ((4, 2048, 512), "random"), ((2048,), "random"),
+    ((3, 77), "random"), ((5, 1000), "random"), ((), "random"),
+    ((8, 512), "zero_block"), ((16, 256), "e4m3_limit")])
+def test_adam8_kernel_matches_plain_bit_for_bit(cuda, dtype, shape, case):
+    # (3, 77), (5, 1000) and (): whole-row blocks, the two-pass loop; the
+    # rest 256-blocks in registers.  Three steps with carried state: the
+    # update, the parameter, the codes and the scales are the same bits as
+    # the plain version's (both round every operation on its own), and a
+    # second run repeats them
+    dt = DTYPES[dtype]
+    grads = _adam8_grads(shape, dt, cuda, 3, case)
+    before = _kernels.LAUNCHES["adam8_fused"]
+    runs = [_adam8_run(shape, dt, grads, kernel=True) for _ in range(2)]
+    assert _kernels.LAUNCHES["adam8_fused"] == before + 6
+    plain = _adam8_run(shape, dt, grads, kernel=False)
+    names = ("update", "param", "m codes", "m scales", "v codes", "v scales")
+    for step, (k1, k2, ref) in enumerate(zip(*runs, plain), start=1):
+        for name, a, b, r in zip(names, k1, k2, ref):
+            assert torch.equal(_bits(a), _bits(b)), (step, name, "repeat")
+            mismatched = (_bits(a) != _bits(r)).sum().item()
+            assert mismatched == 0, (step, name, mismatched)
+    if case == "zero_block":
+        assert plain[-1][3].view(-1)[0].item() == 1.0     # m scale guard
+        assert plain[-1][5].view(-1)[0].item() == 1.0     # v scale guard
+    if case == "e4m3_limit":
+        v_codes = plain[0][4].view(-1, 256)[:, 0].float()
+        assert torch.all(v_codes == 448.0)
+
+
+def test_adam8_kernel_updates_moments_in_place(cuda):
+    # the codes and scales are written where they lie (the Pallas kernel's
+    # input_output_aliases): no new moment buffer, the same storage
+    # changed; the update is a new tensor in p's dtype
+    p = torch.randn(32, 512, device="cuda", generator=cuda).bfloat16()
+    g = torch.randn(32, 512, device="cuda", generator=cuda).bfloat16()
+    opt = topt.adamw8bit()
+    state = opt.init({"p": p})
+    m, v = state["m"]["p"], state["v"]["p"]
+    ptrs = [t.data_ptr() for t in (m.q, m.scale, v.q, v.scale)]
+    upd = topt.adam8_fused(p, g, m, v, opt.consts(1))
+    torch.cuda.synchronize()
+    assert [t.data_ptr() for t in (m.q, m.scale, v.q, v.scale)] == ptrs
+    assert upd.dtype == p.dtype and upd.shape == p.shape
+    assert m.q.abs().max().item() == 127 and (m.scale != 1).all()
+    assert v.q.float().max().item() == 448.0
+    params, state = opt.apply({"p": p}, [g], state)
+    assert params["p"] is p and state["m"]["p"] is m and state["count"] == 1
+
+
+def test_adam8_kernel_unaligned_leaf_takes_the_row_loop(cuda):
+    # a 2-byte offset: no 16-byte vector loads, the same bits
+    buf = torch.empty(8 * 256 + 1, device="cuda", dtype=torch.bfloat16)
+    p_k = buf[1:].view(8, 256)
+    p_k.copy_(torch.randn(8, 256, device="cuda", generator=cuda))
+    assert p_k.data_ptr() % 16
+    p_r = p_k.clone()
+    g = torch.randn(8, 256, device="cuda", generator=cuda).bfloat16()
+    opt = topt.adamw8bit()
+    sk, sr = opt.init({"p": p_k}), opt.init({"p": p_r})
+    uk = topt.adam8_fused(p_k, g, sk["m"]["p"], sk["v"]["p"], opt.consts(1))
+    ur = topt._leaf_update_plain(p_r, g, sr["m"]["p"], sr["v"]["p"],
+                                 opt.consts(1))
+    assert torch.equal(_bits(uk), _bits(ur))
+    assert torch.equal(_bits(sk["v"]["p"].q), _bits(sr["v"]["p"].q))
+
+
+def test_adam8_kernel_refuses(cuda):
+    p = torch.randn(4, 256, device="cuda").bfloat16()
+    opt = topt.adamw8bit()
+    st = opt.init({"p": p})
+    m, v, k = st["m"]["p"], st["v"]["p"], opt.consts(1)
+    with pytest.raises(TypeError):
+        topt.adam8_fused(p.half(), p.half(), m, v, k)
+    with pytest.raises(ValueError, match="g must match"):
+        topt.adam8_fused(p, p.float(), m, v, k)
+    with pytest.raises(ValueError, match="codes"):
+        topt.adam8_fused(p, p, v, m, k)
+    with pytest.raises(ValueError, match="scales"):
+        topt.adam8_fused(p, p, topt.QTensor(m.q, m.scale[:, :0]), v, k)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt = torch.randn(256, 4, device="cuda").bfloat16().t()
+        topt.adam8_fused(pt, pt, m, v, k)
+
+
+def test_adam8_train_step_on_card_matches_cpu(cuda):
+    # the adam8bit step on the card (flash, RMSNorm and 8-bit AdamW
+    # kernels) against the CPU (plain versions), three steps from the same
+    # weights: one adam8_fused launch per leaf per step; losses within
+    # bf16 rounding order, and the weights within 3 steps * 2 * lr plus a
+    # bf16 ulp (gradients that differ in their last bits may move a code)
+    cfg = dataclasses.replace(
+        tllama.LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
+                           kv_heads=2, ffn=512, max_seq=256),
+        remat=True, remat_policy="ffn", xent_chunk=64)
+    params = tllama.init_params(cfg, cuda, "cuda")
+    # the CPU copy first: the card's steps update ``params`` in place
+    start = {"cuda": params, "cpu": tllama.params_to(params, "cpu")}
+    tokens = torch.randint(0, 512, (2, 129), device="cuda", generator=cuda)
+    out = {}
+    for dev, p in start.items():
+        step, _, opt = tllama.make_train_step(cfg, optimizer="adam8bit",
+                                              device=dev)
+        state = opt.init(p)
+        losses = []
+        _kernels.reset_launches()
+        for _ in range(3):
+            p, state, loss = step(p, state, tokens.to(dev))
+            losses.append(loss.item())
+        if dev == "cuda":
+            assert _kernels.LAUNCHES["adam8_fused"] == 3 * 12
+        out[dev] = (losses, tllama.params_to(p, "cpu"))
+    for lc, lp in zip(out["cuda"][0], out["cpu"][0]):
+        assert abs(lc - lp) < 1e-2 * abs(lp)
+    for a, b in zip(tllama.training.tree_leaves(out["cuda"][1]),
+                    tllama.training.tree_leaves(out["cpu"][1])):
+        err = (a.float() - b.float()).abs()
+        assert torch.all(err <= 6 * 3e-4 + 2.0 ** -8 * b.float().abs())

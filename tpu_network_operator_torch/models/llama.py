@@ -274,8 +274,9 @@ def make_train_step(cfg: LlamaConfig, optimizer=None, device=None):
     CUDA, and raises without it): ``step(params, opt_state, tokens) ->
     (params, opt_state, loss)`` with the parameters and moments updated in
     place; ``init_all(generator) -> (params, opt_state)``, the generator
-    living on the device.  The optimizer defaults to
-    ``training.adamw(3e-4, weight_decay=0.1)``."""
+    living on the device.  ``optimizer``: an optimizer object,
+    ``"adam8bit"`` (``optim8bit.adamw8bit()``) or None
+    (``training.adamw(3e-4, weight_decay=0.1)``)."""
     dev = resolve_device(device)
     return training.make_train_step(
         lambda params, tokens: loss_fn(params, tokens, cfg),

@@ -10,7 +10,7 @@ reference's donation of both buffers buys on the TPU.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -222,6 +222,18 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
             for k, v in tree.items()}
 
 
+def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
+    """(1 - b1^count, 1 - b2^count) in f32, as host floats.  The power is
+    an f32 ``pow`` of two tensors, as the reference's ``b ** count`` in f32
+    computes it: ``tensor ** int`` multiplies instead (``x * x * x`` for 3),
+    which moves 1 - 0.999^3 by 2e-5 of itself."""
+    one = torch.tensor(1.0, dtype=torch.float32)
+    n = torch.tensor(float(count), dtype=torch.float32)
+    return tuple(
+        (one - torch.pow(torch.tensor(b, dtype=torch.float32), n)).item()
+        for b in (b1, b2))
+
+
 class AdamW:
     """``optax.adamw`` in plain tensor code, updating in place.
 
@@ -249,9 +261,7 @@ class AdamW:
         :func:`tree_leaves` order) and return (params, state), both
         updated in place."""
         count = state["count"] + 1
-        one = torch.tensor(1.0, dtype=torch.float32)
-        bc1 = one - torch.tensor(self.b1, dtype=torch.float32) ** count
-        bc2 = one - torch.tensor(self.b2, dtype=torch.float32) ** count
+        bc1, bc2 = bias_corrections(self.b1, self.b2, count)
         for p, g, m, v in zip(tree_leaves(params), grads,
                               tree_leaves(state["mu"]),
                               tree_leaves(state["nu"])):
@@ -281,13 +291,19 @@ def adamw(lr: float = 3e-4, weight_decay: float = 0.1, **kw) -> AdamW:
 def make_train_step(
     loss_fn: Callable,             # (params, tokens) -> scalar loss
     init_fn: Callable,             # generator -> params
-    optimizer: Optional[AdamW] = None,
+    optimizer=None,
 ):
     """(step, init_all, optimizer) with the reference's contract:
     ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, the
     parameters and moments updated in place (the single-device
     counterpart of donating both); ``init_all(generator) -> (params,
-    opt_state)``."""
+    opt_state)``.  ``optimizer`` is an :class:`AdamW`, an
+    :class:`.optim8bit.AdamW8bit`, ``"adam8bit"`` (``adamw8bit()`` with the
+    library defaults) or None (``adamw(3e-4, weight_decay=0.1)``)."""
+    if optimizer == "adam8bit":
+        from .optim8bit import adamw8bit
+
+        optimizer = adamw8bit()
     optimizer = optimizer or adamw(3e-4, weight_decay=0.1)
 
     def step(params, opt_state, tokens):

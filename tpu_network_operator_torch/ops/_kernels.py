@@ -39,6 +39,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "rms_norm_fwd": 0, "rms_norm_bwd": 0,
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+    "adam8_fused": 0,
 }
 
 _P = ctypes.c_void_p
@@ -56,6 +57,7 @@ _SIGNATURES = {
     + [_F, _I, _I, _P],
     "tpunet_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18
     + [_F, _I, _I, _P],
+    "tpunet_adam8_fused": [_P] * 7 + [_LL, _I] + [_F] * 9 + [_I, _P],
 }
 
 _lock = threading.Lock()

@@ -7,10 +7,12 @@ versions), with random weights:
 * ``generate`` -- KV-cache decode throughput (tokens/sec) of a Llama-3
   preset;
 * ``train`` -- training throughput (tokens/sec/chip) of a Llama-3 preset
-  with AdamW on a fixed synthetic batch.
+  with AdamW or 8-bit AdamW (``--optimizer adam8bit``), on a fixed
+  synthetic batch or a token file (``--data``), resuming from and saving
+  to ``--checkpoint-dir``.
 
-The mesh flags, ``--data``, checkpoints, MoE, the 8-bit optimizer, the
-collectives sweep and the exec bench come with later slices.
+The mesh flags, MoE, HF import (``convert``), the collectives sweep and the
+exec bench come with later slices.
 """
 
 from .cli import build_parser, main

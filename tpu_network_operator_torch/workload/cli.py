@@ -50,8 +50,19 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps", type=int, default=10)
     t.add_argument("--batch", type=int, default=8)
     t.add_argument("--seq-len", type=int, default=128)
-    t.add_argument("--optimizer", choices=["adamw"], default="adamw",
-                   help="optax.adamw(3e-4, weight_decay=0.1) semantics")
+    t.add_argument("--data", default=None, metavar="TOKENS.bin",
+                   help="memmapped token file (uint16/uint32); default: "
+                        "synthetic fixed batch")
+    t.add_argument("--optimizer", choices=["adamw", "adam8bit"],
+                   default="adamw",
+                   help="adamw: optax.adamw(3e-4, weight_decay=0.1) "
+                        "semantics; adam8bit: int8/f8 moment storage, half "
+                        "the optimizer memory of bf16 moments")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="save here, and resume from its latest step")
+    t.add_argument("--checkpoint-every", type=int, default=0,
+                   help="also save every N updates (0: only the last)")
+    t.add_argument("--keep-checkpoints", type=int, default=3)
     t.set_defaults(fn=cmd_train)
     return p
 
