@@ -13,6 +13,7 @@ Phases, each printing JSON lines; any failure exits non-zero:
 4. generate: greedy ``generate`` of ``llama3-1b`` at full width and depth
    (random bf16 weights from a seeded CUDA generator), batch 64, prompt
    128, 256 new tokens, with the kernels' launch counts read from that run;
+   then profiled prefills and decode steps for the device breakdown;
 5. card_vs_cpu: the same bf16 weights (``llama3-1b`` widths, 2 layers) on
    the card (kernels) and on the CPU (plain versions);
 6. train: the ``llama3-1b`` train step at full width and depth, batch 6 x
@@ -95,6 +96,21 @@ A8_BATCH, A8_SEQ, A8_CHUNK, A8_LR, A8_WD = 4, 2048, 512, 3e-4, 0.1
 CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 1024
 SCRATCH = Path(__file__).resolve().parent / ".chip_smoke_tmp"
 
+# the designs of the kernels redesigned for Hopper
+DESIGN = {
+    "flash_fwd": "persistent grid (a block per SM) over 128-row q tiles, "
+                 "2 consumer warpgroups + TMA producer; 128-key K/V tiles "
+                 "in a 3-stage TMA/mbarrier ring (128B swizzle); S and O "
+                 "by wgmma, softmax in registers overlapped with the "
+                 "warpgroup's own P V, P as register A operand",
+    "flash_bwd_dkv": "128-key tile of one kv-head resident in shared memory,"
+                     " 2 consumer warpgroups + producer warpgroup; 64-row "
+                     "Q/dO steps in a 4-stage TMA/mbarrier ring, Q scaled "
+                     "by the producer; S^T, dP^T, dV, dK by wgmma, dK/dV in "
+                     "registers over the GQA group, elementwise work "
+                     "overlapped with dV/dK at D 64",
+}
+
 # published dense peaks per SKU: (device memory B/s, bf16 tensor FLOP/s,
 # f32 non-tensor FLOP/s) -- NVIDIA data sheets
 PEAKS = {
@@ -104,9 +120,9 @@ PEAKS = {
 
 # kernel vs plain on the card.  RMSNorm: both take the f32 sum of squares
 # in different orders and rsqrtf is approximate, which can flip one bf16
-# rounding of y (2^-8 relative).  Flash: the kernel tiles at 64x64 and the
-# plain version is run with the same blocking; f32 sums in other orders
-# and expf can flip one bf16 rounding of p or O.
+# rounding of y (2^-8 relative).  Flash: the plain versions run at the
+# kernels' own tiles (fa.FWD_TILE, fa.DQ_TILE, fa.DKV_TILE); f32 sums in
+# other orders and exp2 against exp can flip one bf16 rounding of p or O.
 RMS_TOL = {"rtol": 1e-2, "atol": 1e-2}
 FLASH_O_ATOL = 2e-2
 FLASH_LSE_ATOL = 1e-4
@@ -279,9 +295,10 @@ def _flash_case(b, h, hkv, s, d, gen):
 
 
 def _flash_plain_bshd(q, k, v, causal):
-    o, lse = fa._flash_fwd_plain(
+    """The plain forward at the forward kernel's tiles."""
+    o, lse = fa._flash_fwd_plain_at_tiles(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        block_q=64, block_k=64, causal=causal)
+        causal=causal)
     return o.transpose(1, 2), lse
 
 
@@ -302,6 +319,9 @@ def phase_kernels():
         check(ok, f"rms_norm_fwd disagrees with its plain version at {shape}")
     cases = [(2, 32, 8, s, 64, c) for s in (128, 1024) for c in (True, False)]
     cases.append((2, 16, 4, 512, 128, True))
+    # ragged rows and keys, and D 128 with n_rep 4 and 1
+    cases += [(2, 32, 8, 200, 64, True), (1, 32, 8, 777, 64, False),
+              (2, 16, 4, 777, 128, True), (1, 16, 16, 1024, 128, False)]
     for b, h, hkv, s, d, causal in cases:
         q, k, v = _flash_case(b, h, hkv, s, d, gen)
         o, lse = fa._flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
@@ -335,11 +355,11 @@ def _flash_bwd_kernels(q, k, v, do, lse, delta, causal):
 
 
 def _flash_bwd_plain_bshd(q, k, v, do, lse, delta, causal):
-    """The plain backward at the kernels' 64x64 blocking, outputs cast as
-    the dense path casts them."""
-    dq, dk, dv = fa._flash_bwd_plain(
+    """The plain backward at the kernels' tiles, outputs cast as the dense
+    path casts them."""
+    dq, dk, dv = fa._flash_bwd_plain_at_tiles(
         *(t.transpose(1, 2) for t in (q, k, v, do)), lse, delta,
-        block_q=64, block_k=64, causal=causal, dq_dtype=q.dtype)
+        causal=causal, dq_dtype=q.dtype)
     return (dq.transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
             dv.to(v.dtype).transpose(1, 2))
 
@@ -377,10 +397,18 @@ def phase_kernels_bwd():
     for b, h, hkv, s, d, causal in cases:
         inputs = _flash_bwd_inputs(b, h, hkv, s, d, causal, gen)
         outs = _flash_bwd_kernels(*inputs, causal)
+        # dK/dV sums each group in a fixed order, with no atomics: a
+        # second launch must give the same bits
+        again = fa._flash_bwd_dkv_kernel(*inputs, causal=causal, seq_dim=1,
+                                         head_dim=2, out_f32=False)
         torch.cuda.synchronize()
+        same_bits = all(torch.equal(bits(a), bits(r))
+                        for a, r in zip(outs[1:], again))
         res, ok = _grads_ok(outs, _flash_bwd_plain_bshd(*inputs, causal))
+        ok = ok and same_bits
         emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
               "shape": [b, s, h, hkv, d], "causal": causal, **res,
+              "dkv_repeat_same_bits": same_bits,
               "tol": {"max_frac": GRAD_MAX_FRAC, "rel_norm": GRAD_REL},
               "ok": ok})
         check(ok, f"flash backward disagrees with its plain version at "
@@ -394,8 +422,8 @@ def phase_kernels_bwd():
         delta = fa.attention_delta(o, do)
         outs = fa.chunk_bwd(q, k, v, do, lse, delta, causal=causal)
         torch.cuda.synchronize()
-        refs = fa._flash_bwd_plain(q, k, v, do, lse, delta, block_q=64,
-                                   block_k=64, causal=causal)
+        refs = fa._flash_bwd_plain_at_tiles(q, k, v, do, lse, delta,
+                                            causal=causal)
         res, ok = _grads_ok(outs, refs)
         ok = ok and all(t.dtype == torch.float32 for t in outs)
         emit({"phase": "kernels", "kernel": "chunk_bwd (f32)",
@@ -458,6 +486,16 @@ def profile_steps(run, steps: int) -> dict:
     }
 
 
+def profile_prefill(params, cfg, cache, prompt, calls: int = 3) -> dict:
+    """The profile of ``calls`` prefills of the whole prompt batch (each
+    writes the cache from position 0 again)."""
+    def run():
+        forward_with_cache(params, prompt, cache, 0, cfg, attn_len=PROMPT)
+
+    with torch.inference_mode():
+        return profile_steps(run, calls)
+
+
 def profile_decode(params, cfg, cache, tok, steps: int = 32) -> dict:
     """The profile of ``steps`` greedy decode steps after a prefill."""
     state = {"tok": tok, "i": 0}
@@ -492,8 +530,8 @@ def phase_generate():
     out, first_s, _ = drive()
     out, dt, launches = drive()
 
-    # prefill alone, then a profiled window of decode steps, for the
-    # breakdown (outside the counted run)
+    # prefill alone, then profiled prefills and a profiled window of
+    # decode steps, for the breakdown (outside the counted run)
     cache = init_cache(cfg, BATCH, PROMPT + NEW_TOKENS, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -502,6 +540,7 @@ def phase_generate():
                                        attn_len=PROMPT)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
+    prefill_profile = profile_prefill(params, cfg, cache, prompt)
     profile = profile_decode(params, cfg, cache, logits[:, -1].argmax(-1))
     del cache, logits
 
@@ -526,6 +565,7 @@ def phase_generate():
           "launches": launches,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "out_shape": list(out.shape)})
+    emit({"phase": "profile_prefill", **prefill_profile})
     emit({"phase": "profile_decode", **profile})
     del params
     torch.cuda.empty_cache()
@@ -1075,6 +1115,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "name": "flash_fwd", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/flash_fwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:67",
+        "design": DESIGN["flash_fwd"],
         "launches": launches["flash_fwd"],
         **flash_fwd_entry(BATCH, PROMPT, 3),
         "train": {**flash_fwd_entry(tb, ts, 1),
@@ -1090,24 +1131,25 @@ def phase_table(name: str, launches: dict, train_launches: dict,
     check(ok, f"flash backward disagrees with its plain version at the "
               f"train shape: {res}")
     del outs, refs
-    bp = fa._BwdPlain(*(t.transpose(1, 2) for t in (q, k, v, do)), lse,
-                      delta, 64, 64, True)
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    bp_dq = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DQ_TILE, True)
+    bp_dkv = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DKV_TILE,
+                              True)
     lib_ms, lib = _sdpa_backward_ms(q, k, v, do)
     pairs = ts * (ts + 1) // 2
     matmul = 2 * d * pairs * tb * h         # one causal product, all heads
     q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, tb * h * ts * 4
     kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
-    common = {"route": "cuda",
-              "source": "tpu_network_operator_torch/ops/csrc/flash_bwd.cu",
-              "shape": [tb, ts, h, hkv, d],
+    common = {"route": "cuda", "shape": [tb, ts, h, hkv, d],
               "library_ms": lib_ms, "library": {**lib, "covers": "dq+dkv"}}
     rows.append({
         "name": "flash_bwd_dq", **common,
+        "source": "tpu_network_operator_torch/ops/csrc/flash_bwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:158",
         "launches": train_launches["flash_bwd_dq"],
         "max_abs_err": res["dq"]["max_abs_err"],
         "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),
-        "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp, q.dtype),
+        "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp_dq, q.dtype),
                             iters=1, reps=3),
         # S, dP and dQ; reads q, dO, k, v, lse, delta, writes dq
         **_bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, 3 * matmul,
@@ -1115,18 +1157,20 @@ def phase_table(name: str, launches: dict, train_launches: dict,
     })
     rows.append({
         "name": "flash_bwd_dkv", **common,
+        "source": "tpu_network_operator_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:204",
+        "design": DESIGN["flash_bwd_dkv"],
         "launches": train_launches["flash_bwd_dkv"],
         "max_abs_err": max(res["dk"]["max_abs_err"],
                            res["dv"]["max_abs_err"]),
         "ms": time_ms(lambda: fa._flash_bwd_dkv_kernel(*inputs, **kw)),
-        "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp),
+        "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp_dkv),
                             iters=1, reps=3),
         # S, dP, dV and dK; reads q, dO, k, v, lse, delta, writes dk, dv
         **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
                  bw, bf16_peak),
     })
-    del inputs, q, k, v, do, lse, delta, bp
+    del inputs, q, k, v, do, lse, delta, qt, kt, vt, dot, bp_dq, bp_dkv
 
     # -- 8-bit AdamW at the largest leaf (embed and lm_head), moments
     # non-zero from one step; each timed call steps the state in place

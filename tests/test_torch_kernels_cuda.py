@@ -108,10 +108,9 @@ def test_flash_kernel_matches_plain_bshd(cuda, causal, b, s, h, hkv, d):
     before = _kernels.LAUNCHES["flash_fwd"]
     out = tfa.flash_attention(q, k, v, causal=causal, block_q=s, block_k=s)
     assert _kernels.LAUNCHES["flash_fwd"] == before + 1
-    ref, _ = tfa._flash_fwd_plain(q.transpose(1, 2), k.transpose(1, 2),
-                                  v.transpose(1, 2), block_q=64 if s % 64 == 0
-                                  else s, block_k=64 if s % 64 == 0 else s,
-                                  causal=causal)
+    ref, _ = tfa._flash_fwd_plain_at_tiles(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     torch.testing.assert_close(out, ref.transpose(1, 2), rtol=0, atol=2e-2)
 
@@ -122,8 +121,7 @@ def test_flash_chunk_fwd_bhsd_and_past_chunk(cuda):
     q, k, v = _qkv(cuda, 2, 128, 256, 8, 2, 64, layout="bhsd")
     out, lse = tfa.chunk_fwd(q, k, v, causal=False, block_q=128,
                              block_k=128)
-    ref, ref_lse = tfa._flash_fwd_plain(q, k, v, block_q=64, block_k=64,
-                                        causal=False)
+    ref, ref_lse = tfa._flash_fwd_plain_at_tiles(q, k, v, causal=False)
     assert lse.shape == (2, 8, 128) and lse.dtype == torch.float32
     torch.testing.assert_close(out, ref, rtol=0, atol=2e-2)
     torch.testing.assert_close(lse, ref_lse, rtol=0, atol=1e-4)
@@ -256,10 +254,8 @@ def test_flash_bwd_kernels_match_plain(cuda, causal, b, s, h, hkv, d):
     dk, dv = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
     assert _kernels.LAUNCHES["flash_bwd_dq"] == before["flash_bwd_dq"] + 1
     assert _kernels.LAUNCHES["flash_bwd_dkv"] == before["flash_bwd_dkv"] + 1
-    blk = 64 if s % 64 == 0 else s
-    rq, rk, rv = tfa._flash_bwd_plain(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        do.transpose(1, 2), lse, delta, block_q=blk, block_k=blk,
+    rq, rk, rv = tfa._flash_bwd_plain_at_tiles(
+        *(t.transpose(1, 2) for t in (q, k, v, do)), lse, delta,
         causal=causal, dq_dtype=torch.bfloat16)
     assert dq.dtype == dk.dtype == torch.bfloat16
     assert dq.shape == q.shape and dk.shape == k.shape == dv.shape
@@ -278,8 +274,8 @@ def test_flash_chunk_bwd_f32_bhsd(cuda, causal):
     delta = tfa.attention_delta(o, do)
     out = tfa.chunk_bwd(q, k, v, do, lse, delta, causal=causal,
                         block_q=128, block_k=128)
-    ref = tfa._flash_bwd_plain(q, k, v, do, lse, delta, block_q=64,
-                               block_k=64, causal=causal)
+    ref = tfa._flash_bwd_plain_at_tiles(q, k, v, do, lse, delta,
+                                        causal=causal)
     for name, t, r in zip(("dq", "dk", "dv"), out, ref):
         assert t.dtype == torch.float32 and t.shape == r.shape, name
         _assert_grad_close(t, r, name)
@@ -297,7 +293,8 @@ def test_flash_autograd_on_card_counts_and_matches(cuda):
     assert _kernels.LAUNCHES["flash_bwd_dkv"] == 1
     cpu = [t.detach().cpu().requires_grad_() for t in (q, k, v)]
     ref = torch.autograd.grad(
-        tfa.flash_attention(*cpu, block_q=64, block_k=64), cpu, do.cpu())
+        tfa.flash_attention(*cpu, block_q=tfa.FWD_TILE[0],
+                            block_k=tfa.FWD_TILE[1]), cpu, do.cpu())
     for name, g, r in zip("qkv", grads, ref):
         _assert_grad_close(g.cpu(), r, name)
 
@@ -330,6 +327,125 @@ def test_train_step_on_card_matches_cpu(cuda):
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-2 * abs(out["cpu"][0])
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         assert _rel(g.cpu(), r) < 3e-2
+
+
+# -- the Hopper flash forward and dK/dV kernels: edge cases -------------------
+
+
+def _to_bhsd(layout):
+    """[B,S,H,D] <-> [B,H,S,D] for ``layout`` "bshd", else the identity."""
+    return (lambda x: x.transpose(1, 2)) if layout == "bshd" else (
+        lambda x: x)
+
+
+def _fwd_plain(q, k, v, causal, layout):
+    """The plain forward at the kernel's tiles, in the kernel's layout."""
+    t = _to_bhsd(layout)
+    o, lse = tfa._flash_fwd_plain_at_tiles(t(q), t(k), t(v), causal=causal)
+    return t(o), lse
+
+
+def _fwd_kernel(q, k, v, causal, layout):
+    dims = dict(seq_dim=1, head_dim=2) if layout == "bshd" else dict(
+        seq_dim=2, head_dim=1)
+    return tfa._flash_fwd_kernel(q, k, v, causal=causal, **dims)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,layout", [
+    (2, 200, 200, 8, 2, 64, True, "bshd"),      # ragged rows and keys
+    (1, 777, 777, 4, 1, 64, True, "bshd"),
+    (1, 777, 777, 8, 2, 128, False, "bshd"),
+    (2, 200, 200, 4, 4, 128, True, "bshd"),
+    (2, 192, 320, 8, 2, 64, False, "bhsd"),     # the past chunk: Sq != Sk
+    (1, 256, 512, 4, 1, 128, False, "bhsd"),
+    (2, 512, 512, 16, 4, 128, True, "bshd"),    # D 128, n_rep 4 and 1
+    (1, 384, 384, 8, 8, 128, False, "bshd"),
+])
+def test_flash_fwd_kernel_edges(cuda, b, sq, sk, h, hkv, d, causal, layout):
+    q, k, v = _qkv(cuda, b, sq, sk, h, hkv, d, layout)
+    before = _kernels.LAUNCHES["flash_fwd"]
+    o, lse = _fwd_kernel(q, k, v, causal, layout)
+    assert _kernels.LAUNCHES["flash_fwd"] == before + 1
+    ro, rlse = _fwd_plain(q, k, v, causal, layout)
+    assert o.shape == q.shape and lse.shape == (b, h, sq)
+    torch.testing.assert_close(o, ro, rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+
+
+def _dkv_plain(q, k, v, do, lse, delta, causal, layout):
+    t = _to_bhsd(layout)
+    bp = tfa._bwd_plain_at(*(t(x) for x in (q, k, v, do)), lse, delta,
+                           tfa.DKV_TILE, causal)
+    return tuple(t(x) for x in tfa._flash_bwd_dkv_plain(bp))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,layout,out_f32", [
+    (2, 200, 200, 8, 2, 64, True, "bshd", False),      # ragged rows, keys
+    (1, 777, 777, 4, 1, 64, True, "bshd", False),
+    (1, 777, 777, 8, 2, 128, False, "bshd", False),
+    (2, 192, 320, 8, 2, 64, False, "bhsd", True),      # past chunk, f32
+    (1, 256, 512, 4, 1, 128, False, "bhsd", True),
+    (2, 512, 512, 16, 4, 128, True, "bshd", False),    # D 128, n_rep 4, 1
+    (1, 384, 384, 8, 8, 128, True, "bhsd", True),
+])
+def test_flash_dkv_kernel_edges(cuda, b, sq, sk, h, hkv, d, causal, layout,
+                                out_f32):
+    q, k, v = _qkv(cuda, b, sq, sk, h, hkv, d, layout)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).bfloat16()
+    o, lse = _fwd_kernel(q, k, v, causal, layout)
+    seq = 1 if layout == "bshd" else 2
+    delta = tfa.attention_delta(*((o, do) if seq == 2 else
+                                  (o.transpose(1, 2), do.transpose(1, 2))))
+    dims = dict(seq_dim=seq, head_dim=3 - seq)
+    before = _kernels.LAUNCHES["flash_bwd_dkv"]
+    dk, dv = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal=causal,
+                                       out_f32=out_f32, **dims)
+    assert _kernels.LAUNCHES["flash_bwd_dkv"] == before + 1
+    want = torch.float32 if out_f32 else torch.bfloat16
+    assert dk.dtype == dv.dtype == want and dk.shape == dv.shape == k.shape
+    rk, rv = _dkv_plain(q, k, v, do, lse, delta, causal, layout)
+    _assert_grad_close(dk, rk, "dk")
+    _assert_grad_close(dv, rv, "dv")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_kernels_repeat_bits(cuda, d):
+    # no atomics and a fixed order: a second launch gives the same bits
+    q, k, v, do, lse, delta = _flash_bwd_case(cuda, 2, 640, 8, 2, d, True)
+    o1, l1 = tfa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                   head_dim=2)
+    o2, l2 = tfa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                   head_dim=2)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
+    first = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    second = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    for a, r in zip(first, second):
+        assert torch.equal(_bits(a), _bits(r))
+
+
+def test_flash_kernels_in_a_cuda_graph(cuda):
+    # one launch of each captured in a CUDA graph and replayed (as
+    # chip_smoke.py's timing does) gives the eager launch's bits: the
+    # tensor maps travel by value in the kernel parameters
+    q, k, v, do, lse, delta = _flash_bwd_case(cuda, 2, 512, 8, 2, 64, True)
+    kw = dict(causal=True, seq_dim=1, head_dim=2)
+    eager = (*tfa._flash_fwd_kernel(q, k, v, **kw),
+             *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                        out_f32=False, **kw))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            captured = (*tfa._flash_fwd_kernel(q, k, v, **kw),
+                        *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
+                                                   out_f32=False, **kw))
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, r in zip(captured, eager):
+        assert torch.equal(_bits(a), _bits(r))
 
 
 # -- 8-bit AdamW --------------------------------------------------------------

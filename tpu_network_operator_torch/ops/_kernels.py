@@ -1,12 +1,15 @@
 """Build, load and count the hand-written CUDA kernels under ``csrc/``.
 
 Every ``csrc/*.cu`` file is compiled for Hopper (``sm_90a``) with ``nvcc``
-into one shared library with a plain C interface, loaded with ``ctypes``.
+into one shared library with a plain C interface, loaded with ``ctypes``;
+``csrc/*.cuh`` are headers the sources include (``hopper.cuh``: TMA,
+mbarriers and ``wgmma``), never compiled on their own.
 The build runs at first use, never at import (the CPU test suite imports
 every module on a machine without ``nvcc``), one ``nvcc`` per source, all
 started together, then one link.  The library lands in ``.kernel_build/``
-at the repository root under a name that carries a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once.  A
+at the repository root under a name that carries a hash of every file under
+``csrc/`` (sources and headers) and of the flags, so an edited source or
+header rebuilds and an unchanged tree loads at once.  A
 failed build raises with ``nvcc``'s error output.
 
 :data:`LAUNCHES` counts, per kernel, the launches the wrappers made: each
@@ -85,12 +88,20 @@ def _nvcc() -> str:
 
 
 def _sources():
+    """The files compiled: one object each."""
     return sorted(CSRC.glob("*.cu"))
+
+
+def _inputs():
+    """Every file the build reads: the sources and the headers they
+    include."""
+    return sorted(p for p in CSRC.iterdir()
+                  if p.is_file() and p.suffix in (".cu", ".cuh"))
 
 
 def library_path() -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _inputs():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
     return BUILD_DIR / f"libtpunet_kernels_{digest.hexdigest()[:16]}.so"

@@ -1,39 +1,31 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention dQ backward for Hopper (sm_90a), plain C interface for
+// ctypes.
 //
-// Replaces: tpu_network_operator/ops/pallas_attention.py::_dq_kernel and
-// ::_dkv_kernel (the Pallas flash backward).  Same function, from the
-// forward's f32 log-sum-exp (lse) and delta = rowsum(dO * O) (f32):
+// Replaces: tpu_network_operator/ops/pallas_attention.py::_dq_kernel (the
+// Pallas flash backward's dQ pass; its dK/dV pass is flash_bwd_dkv.cu).
+// Same function, from the forward's f32 log-sum-exp (lse) and
+// delta = rowsum(dO * O) (f32):
 //   P  = exp(S - lse) with S = bf16(q * scale) K^T (masked causally),
-//   dP = dO V^T,  dS = P * (dP - delta),
-//   dQ = scale * dS K,  dK = dS^T bf16(q * scale),  dV = P^T dO,
-// with bf16 tensor-core operands (q * scale, dO, P and dS rounded to bf16
-// where the TPU kernels round them) and f32 accumulation.
+//   dP = dO V^T,  dS = P * (dP - delta),  dQ = scale * dS K,
+// with bf16 tensor-core operands (q * scale, dO and dS rounded to bf16
+// where the TPU kernel rounds them) and f32 accumulation.
 //
-// Two kernels, as on the TPU, because dQ sums over keys and dK/dV over
-// queries:
-//
-// * dQ: one 128-thread block per (64-row q tile, q-head, batch) keeps its
-//   Q and dO rows as WMMA fragments, streams 64-key K/V tiles through
-//   shared memory (only the causally live ones), and keeps the [64, D] dQ
-//   accumulator in tensor-core accumulator fragments for the whole loop.
-// * dK/dV: one 128-thread block per (64-key tile, kv-head, batch) loops
-//   over the n_rep q-heads of its GQA group and, for each, over the q
-//   tiles that can see its keys, with dK and dV in accumulator fragments.
-//   This fuses the group sum that the TPU path does outside its kernel
-//   over per-q-head f32 partials, so those partials never reach device
-//   memory, and the sum over the group runs in a fixed order.
-//
+// One 128-thread block per (64-row q tile, q-head, batch) keeps its Q and
+// dO rows as WMMA fragments, streams 64-key K/V tiles through shared
+// memory (only the causally live ones), and keeps the [64, D] dQ
+// accumulator in tensor-core accumulator fragments for the whole loop.
 // Each of the four warps owns 16 rows of the block's tile; the element-
 // wise part (exp, the dS product, masking) runs in f32 on a per-warp
 // shared-memory copy of the [16, 64] S and dP tiles, two lanes per row.
 // Bound on this card: the tensor-core rate (at S = 2048, D = 64 the three
-// or four products per tile pair are ~16 flops per byte moved), and this
-// design is far from it: the tiles are copied synchronously, with no
-// overlap of copies and products, and WMMA does not reach the wgmma rate.
-// TMA, wgmma and a pipelined tile ring are left for a later version.
-// Ragged tiles are masked (any Sq, Sk); fully masked causal tiles are
-// skipped.  Tensors are addressed through strides, so the [B,S,H,D] and
-// [B,H,S,D] layouts are both read without a transpose.
+// products per tile pair are ~16 flops per byte moved), and this design is
+// far from it: the tiles are copied synchronously, with no overlap of
+// copies and products, and WMMA does not reach the wgmma rate.  TMA, wgmma
+// and a pipelined tile ring (hopper.cuh, as flash_fwd.cu and
+// flash_bwd_dkv.cu use them) are left for a later version.  Ragged tiles
+// are masked (any Sq, Sk); fully masked causal tiles are skipped.  Tensors
+// are addressed through strides, so the [B,S,H,D] and [B,H,S,D] layouts
+// are both read without a transpose.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,20 +48,18 @@ struct Strides {
 template <int D>
 struct Layout {
   static constexpr int kLdT = D + 8;                  // bf16 pitch of [64, D] tiles
-  static constexpr int kLdP = kTile + 8;              // bf16 pitch of [64, 64] P / dS
+  static constexpr int kLdP = kTile + 8;              // bf16 pitch of [64, 64] dS
   static constexpr int kWide = D > kTile ? D : kTile;
   static constexpr int kLdS = kWide + 4;              // f32 pitch of S / dP / staging
   static constexpr size_t kTileBytes = sizeof(bf16) * kTile * kLdT;
   static constexpr size_t kF32Bytes = sizeof(float) * kTile * kLdS;
   static constexpr size_t kPBytes = sizeof(bf16) * kTile * kLdP;
-  // four bf16 tiles (Q, dO, K, V), S and dP in f32, then P and dS in bf16
+  // four bf16 tiles (Q, dO, K, V), S and dP in f32, then dS in bf16
   static constexpr size_t kT0 = 0;
   static constexpr size_t kS = 4 * kTileBytes;
   static constexpr size_t kDP = kS + kF32Bytes;
-  static constexpr size_t kP = kDP + kF32Bytes;
-  static constexpr size_t kDS = kP + kPBytes;
-  static constexpr size_t kStats = kDS + kPBytes;     // lse and delta of a q tile
-  static constexpr size_t kBytes = kStats + 2 * sizeof(float) * kTile;
+  static constexpr size_t kDS = kDP + kF32Bytes;
+  static constexpr size_t kBytes = kDS + kPBytes;
 };
 
 // Copy rows [row0, row0 + 64) of one head into a padded bf16 tile, 16 bytes
@@ -264,110 +254,6 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   write_rows<D>(dq, b * dqs.b + h * dqs.h, dqs.s, sSw, q0 + warp * 16, Sq, out_f32);
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     void* __restrict__ dk, void* __restrict__ dv, int H, int Hkv,
-                     int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides dos,
-                     Strides dks, Strides dvs, float scale, int causal, int out_f32) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kT0);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::kT0 + L::kTileBytes);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kT0 + 2 * L::kTileBytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kT0 + 3 * L::kTileBytes);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  float* sDP = reinterpret_cast<float*>(smem + L::kDP);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::kP);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::kDS);
-  float* sLse = reinterpret_cast<float*>(smem + L::kStats);
-  float* sDelta = sLse + kTile;
-
-  // key tile 0 sees every q tile under the causal mask: heaviest first
-  const int kt = blockIdx.x;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int n_rep = H / Hkv;
-  const int k0 = kt * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int k_pos = k0 + warp * 16 + r;
-
-  load_tile<D, false>(sK, k + b * ks.b + hk * ks.h, ks.s, k0, Sk, 0.f);
-  load_tile<D, false>(sV, v + b * vs.b + hk * vs.h, vs.s, k0, Sk, 0.f);
-
-  FragC dk_acc[D / 16];
-  FragC dv_acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fill_fragment(dk_acc[n], 0.f);
-    wmma::fill_fragment(dv_acc[n], 0.f);
-  }
-
-  const bf16* sKw = sK + warp * 16 * L::kLdT;
-  const bf16* sVw = sV + warp * 16 * L::kLdT;
-  float* sSw = sS + warp * 16 * L::kLdS;
-  float* sDPw = sDP + warp * 16 * L::kLdS;
-  bf16* sPw = sP + warp * 16 * L::kLdP;
-  bf16* sDSw = sDS + warp * 16 * L::kLdP;
-
-  const int n_qt = (Sq + kTile - 1) / kTile;
-  // q tile i sees key tile kt iff its last row >= the tile's first key
-  const int i0 = causal ? k0 / kTile : 0;
-
-  for (int hh = 0; hh < n_rep; ++hh) {
-    const int h = hk * n_rep + hh;
-    const bf16* qb = q + b * qs.b + h * qs.h;
-    const bf16* dob = dout + b * dos.b + h * dos.h;
-    const long long stat = ((long long)b * H + h) * Sq;
-    for (int i = i0; i < n_qt; ++i) {
-      const int q0 = i * kTile;
-      __syncthreads();                     // previous q tile fully consumed
-      load_tile<D, true>(sQ, qb, qs.s, q0, Sq, scale);
-      load_tile<D, false>(sDO, dob, dos.s, q0, Sq, 0.f);
-      if (threadIdx.x < kTile) {
-        const int qp = q0 + threadIdx.x;
-        sLse[threadIdx.x] = qp < Sq ? lse[stat + qp] : 0.f;
-        sDelta[threadIdx.x] = qp < Sq ? delta[stat + qp] : 0.f;
-      }
-      __syncthreads();
-
-      rows_times_tile_t<D>(sSw, sKw, sQ);    // S^T  = K bf16(q * scale)^T
-      rows_times_tile_t<D>(sDPw, sVw, sDO);  // dP^T = V dO^T
-      __syncwarp();
-
-#pragma unroll 8
-      for (int j = 0; j < kTile / 2; ++j) {
-        const int col = half * (kTile / 2) + j;
-        const int q_pos = q0 + col;
-        const bool live = q_pos < Sq && !(causal && q_pos < k_pos);
-        const float p = live ? expf(sSw[r * L::kLdS + col] - sLse[col]) : 0.f;
-        const float ds = p * (sDPw[r * L::kLdS + col] - sDelta[col]);
-        sPw[r * L::kLdP + col] = __float2bfloat16(p);
-        sDSw[r * L::kLdP + col] = __float2bfloat16(ds);
-      }
-      __syncwarp();
-
-      accumulate<D>(dv_acc, sPw, sDO);       // dV += bf16(P)^T dO
-      accumulate<D>(dk_acc, sDSw, sQ);       // dK += bf16(dS)^T bf16(q * scale)
-    }
-  }
-
-  // q was pre-scaled, so dK needs no further scale
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::store_matrix_sync(sSw + n * 16, dk_acc[n], L::kLdS, wmma::mem_row_major);
-    wmma::store_matrix_sync(sDPw + n * 16, dv_acc[n], L::kLdS, wmma::mem_row_major);
-  }
-  __syncwarp();
-  write_rows<D>(dk, b * dks.b + hk * dks.h, dks.s, sSw, k0 + warp * 16, Sk, out_f32);
-  write_rows<D>(dv, b * dvs.b + hk * dvs.h, dvs.s, sDPw, k0 + warp * 16, Sk, out_f32);
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   // above 48 KB of dynamic shared memory needs the opt-in (per device)
@@ -388,23 +274,6 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
       static_cast<const bf16*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), dq, H, Hkv, Sq, Sk, qs, ks, vs, dos, dqs, scale,
       causal, out_f32);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-               Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-               float scale, int causal, int out_f32, cudaStream_t stream) {
-  constexpr size_t kSmem = Layout<D>::kBytes;
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<D>, kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sk + kTile - 1) / kTile, Hkv, B);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), dk, dv, H, Hkv, Sq, Sk, qs, ks, vs, dos, dks, dvs,
-      scale, causal, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -440,35 +309,6 @@ extern "C" int tpunet_flash_bwd_dq(const void* q, const void* k, const void* v,
     case 128:
       return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
                             dqs, scale, causal, out_f32, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// As above; dk and dv have k's shape ([B, Sk, Hkv, D] by their own
-// strides), summed over each kv-head's group of H / Hkv q-heads, f32 if
-// out_f32 else bf16.
-extern "C" int tpunet_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                                    const void* dout, const void* lse, const void* delta,
-                                    void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
-                                    int D, long long q_sb, long long q_ss, long long q_sh,
-                                    long long k_sb, long long k_ss, long long k_sh,
-                                    long long v_sb, long long v_ss, long long v_sh,
-                                    long long do_sb, long long do_ss, long long do_sh,
-                                    long long dk_sb, long long dk_ss, long long dk_sh,
-                                    long long dv_sb, long long dv_ss, long long dv_sh,
-                                    float scale, int causal, int out_f32, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
-  const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
-  const Strides dos{do_sb, do_ss, do_sh}, dks{dk_sb, dk_ss, dk_sh}, dvs{dv_sb, dv_ss, dv_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64:
-      return launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                            dos, dks, dvs, scale, causal, out_f32, s);
-    case 128:
-      return launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                             dos, dks, dvs, scale, causal, out_f32, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

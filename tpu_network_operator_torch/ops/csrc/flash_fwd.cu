@@ -6,243 +6,432 @@
 // and the probabilities rounded to bf16 before their products (as the TPU
 // kernel rounds them for its matrix unit), GQA by reading kv-head
 // h / (H / Hkv) with no copy, and an optional causal mask that skips key
-// tiles wholly above the diagonal.  Outputs: O in the input dtype and the
-// log-sum-exp as [B, H, Sq] f32 (no 128-lane broadcast).
+// tiles wholly above the diagonal.  Outputs: O in bf16 and the log-sum-exp
+// as [B, H, Sq] f32 (no 128-lane broadcast).
 //
-// Bound on this card: at the serving path's prefill shapes (S = 128..1024,
-// D = 64/128) the work is ~2*S*D flops per loaded K/V byte pair per q-tile,
-// and the whole call moves Q, K, V and O once, so at short S it is bound by
-// bytes and at long S by the tensor-core rate.  The design keeps the [S, S]
-// score matrix out of device memory and reads K/V once per 64-row q-tile:
-// one 128-thread block per (q-tile of 64 rows, q-head, batch) streams
-// 64-key K/V tiles through shared memory (the TPU kernel instead held the
-// kv-head's whole K/V in VMEM), each of the four warps owns 16 query rows,
-// S = Q K^T and P V run on the tensor cores through WMMA (bf16 operands,
-// f32 accumulation), and the softmax runs in f32 on a shared-memory copy of
-// each warp's score tile.  Q/K/V/O are addressed through strides, so both
-// the [B,S,H,D] and the [B,H,S,D] layouts are read without a transpose.
-// TMA, wgmma and a pipelined K/V ring are left for a later version.
+// Bound on this card: the tensor-core rate at the training shape (S 2048,
+// 2 * 64 flops per loaded K/V byte pair per 128-row q tile), the bytes of
+// Q, K, V and O at short prefills.  Design:
+//
+// * a persistent grid: one block of three warpgroups per SM walks the
+//   128-row q tiles of every (batch, q-head), each head's heaviest causal
+//   tile (the last q rows) first.  Warpgroups 0 and 1 each own 64 query
+//   rows, warpgroup 2 is the producer, one thread of which issues every
+//   TMA load;
+// * Q tiles arrive by TMA (into two slots in turn at D 64); each consumer
+//   warpgroup rounds its own rows to bf16(q * scale) in place;
+// * 128-key K and V tiles stream by TMA (128-byte swizzle) through a ring
+//   of shared-memory stages under full / empty mbarriers, one ring for
+//   all of a block's q tiles, so the next tiles (and the next q tile's Q
+//   and first K/V) load while the current ones are multiplied and
+//   written out;
+// * S = Q K^T is one wgmma chain (m64n128k16, both operands from shared
+//   memory) into registers; the online softmax runs on those registers
+//   (row max and sum over the four threads that share a row, the mask on
+//   the diagonal and ragged tiles only, exp2 with log2 e folded in);
+// * P is packed to bf16 in registers and is the register A operand of
+//   O += P V (m64nDk16, V read MN-major); O stays in registers;
+// * each warpgroup overlaps its softmax with its own products: step j
+//   issues S of tile j and then P V of tile j - 1, waits for S only, and
+//   runs the softmax of tile j while P V still runs; O is rescaled once
+//   P V is done;
+// * the epilogue stages O / l through the warpgroup's own Q rows and
+//   writes 16-byte rows; the LSE (natural units, m + log l) goes out
+//   per row.
+//
+// The producer gives up registers (setmaxnreg) to the consumers, which
+// hold S (64 f32), O (up to 64 f32) and the packed P of two tiles.
+// Measured on an H100 and no faster: strict ping-pong between the two
+// consumer warpgroups by named barriers (PERF.md).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // keys per streamed tile
-constexpr int kWarps = 4;     // each warp owns 16 query rows
-constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;   // the TPU kernel's mask value
+constexpr int kBQ = 128;           // query rows per block (two warpgroups of 64)
+constexpr int kBK = 128;           // keys per streamed K/V tile
+constexpr int kThreads = 384;      // two consumer warpgroups + one producer
+constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
+constexpr float kLog2e = 1.4426950408889634f;
+static_assert(kBK == kBQ, "softmax_tile picks the masked tiles by the block's rows");
 
 struct Strides {
-  long long b, s, h;          // element strides; the head_dim stride is 1
+  long long b, s, h;  // element strides; the head_dim stride is 1
 };
 
 template <int D>
-struct Layout {
-  static constexpr int kLdQ = D + 8;                  // bf16 row pitch of Q/K/V tiles
-  static constexpr int kLdP = kBK + 8;                // bf16 row pitch of P
-  static constexpr int kWide = D > kBK ? D : kBK;
-  static constexpr int kLdS = kWide + 4;              // f32 row pitch of S / PV
-  static constexpr size_t kQ = 0;
-  static constexpr size_t kK = kQ + sizeof(bf16) * kBQ * kLdQ;
-  static constexpr size_t kV = kK + sizeof(bf16) * kBK * kLdQ;
-  static constexpr size_t kS = kV + sizeof(bf16) * kBK * kLdQ;
-  static constexpr size_t kP = kS + sizeof(float) * kBQ * kLdS;
-  static constexpr size_t kBytes = kP + sizeof(bf16) * kBQ * kLdP;
+struct Smem {
+  static constexpr int kStages = 3;  // K/V ring depth
+  // Q slots: at D 64 the next work item's Q loads while this one runs;
+  // at D 128 a second slot would not fit beside the ring (227 KB)
+  static constexpr int kQSlots = D == 64 ? 2 : 1;
+  static constexpr int kQPanel = kBQ * 128;   // bytes of one 64-column panel of Q
+  static constexpr int kKVPanel = kBK * 128;  // ... of a K or V tile
+  static constexpr int kQTile = kQPanel * (D / 64);
+  static constexpr int kKVTile = kKVPanel * (D / 64);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQSlots * kQTile;
+  static constexpr int kV = kK + kStages * kKVTile;
+  // full[kStages], empty[kStages], q_full[kQSlots], q_empty[kQSlots]
+  static constexpr int kBars = kV + kStages * kKVTile;
+  static constexpr int kUsed = kBars + 8 * (2 * kStages + 2 * kQSlots);
+  // one block per SM: the register split of setmaxnreg below assumes it
+  static constexpr int kBytes = (kUsed > 120 * 1024 ? kUsed : 120 * 1024) + 1024;
 };
 
-// Copy rows [row0, row0 + 64) of one head into a padded bf16 tile, 16 bytes
-// per thread per step, zero-filling rows past `rows`.  With kScale each
-// element becomes bf16(float(x) * scale), the TPU kernel's rounding of
-// q * scale.
-template <int D, bool kScale>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int row0, int rows, float scale) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < 64 * kVecs; i += kThreads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-      if (kScale) {
+// Work item `t` of the persistent grid: a 128-row q tile of one (batch,
+// q-head), heaviest causal tiles (the last q rows) first, every head's
+// before any lighter one
+struct Work {
+  int qt, h, b;
+};
+
+__device__ __forceinline__ Work work_at(int t, int H, int BH, int n_qt) {
+  const int r = t % BH;
+  return {n_qt - 1 - t / BH, r % H, r / H};
+}
+
+// The item block `blk` of `G` takes in round r: the blocks run the rounds
+// in turn forward and backward, so the heavier and lighter items of two
+// rounds even out over the blocks.  A round past the last item ends the
+// block's walk.
+__device__ __forceinline__ int item_of(int r, int blk, int G) {
+  return r * G + ((r & 1) ? G - 1 - blk : blk);
+}
+
+// the key tiles q rows [q0, q0 + kBQ) see: under the causal mask, tile j
+// is live iff its first key <= the tile's last query row
+__device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal) {
+  const int n = (Sk + kBK - 1) / kBK;
+  return causal ? min(n, (min(q0 + kBQ, Sq) - 1) / kBK + 1) : n;
+}
+
+// S = bf16(q * scale) K^T of one tile: [64, 128] f32 into registers
+template <int D>
+__device__ __forceinline__ void issue_s(float (&sc)[kBK / 2], uint32_t q_rows,
+                                        uint32_t k_tile) {
+  using L = Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss_n128(sc, desc_k(q_rows, L::kQPanel, kk), desc_k(k_tile, L::kKVPanel, kk), kk > 0);
+  }
+}
+
+// O += bf16(P) V of one tile: P from registers as the A operand, V MN-major
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)[kBK / 4],
+                                         uint32_t v_tile) {
+  using L = Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    if constexpr (D == 64) {
+      wgmma_rs_n64(o, pa + 4 * kk, desc_mn(v_tile, L::kKVPanel, kk));
+    } else {
+      wgmma_rs_n128(o, pa + 4 * kk, desc_mn(v_tile, L::kKVPanel, kk));
+    }
+  }
+}
+
+// what the mask needs: the block's first query row, this thread's first
+// row (its second is 8 below), its lane, Sk and causality
+struct Rows {
+  int q0, row, lane, Sk, causal;
+};
+
+// The online softmax of keys [k0, k0 + kBK) from S in `sc`, which it only
+// reads (ptxas serializes wgmmas around registers that other instructions
+// write while one runs): the running max m and this thread's row sums l
+// move on, alpha takes O to the new max, and P goes out packed to bf16.
+// kMask: the tile may hold a key past Sk or above the diagonal.
+template <bool kMask>
+__device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 4],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             const Rows& rows, int k0) {
+  auto val = [&](int i) {
+    if constexpr (kMask) {
+      const int col = k0 + (i / 4) * 8 + (rows.lane % 4) * 2 + (i % 2);
+      const int row = rows.row + 8 * ((i / 2) % 2);
+      if (col >= rows.Sk || (rows.causal && col > row)) return kNegInf;
+    }
+    return sc[i];
+  };
+  // rows rows.row (r = 0) and rows.row + 8 (r = 1), over the four threads
+  // that share each
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < kBK / 2; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], val(i));
+  float neg_ms[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    alpha[r] = ex2_approx((m[r] - m_new) * kLog2e);
+    neg_ms[r] = -m_new * kLog2e;
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < kBK / 2; i += 2) {
+    const int r = (i / 2) % 2;
+    const float p0 = ex2_approx(fmaf(val(i), kLog2e, neg_ms[r]));
+    const float p1 = ex2_approx(fmaf(val(i + 1), kLog2e, neg_ms[r]));
+    sum[r] += p0;
+    sum[r] += p1;
+    pa[i / 2] = pack_bf16(p0, p1);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
+}
+
+__device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 4],
+                                             float (&m)[2], float (&l)[2], float (&alpha)[2],
+                                             const Rows& rows, int k0) {
+  // the block's first row, not the warpgroup's: both pick the same tiles
+  // (kBK == kBQ), and a branch on a value the same in every thread of the
+  // block keeps ptxas from serializing the wgmmas that run across it
+  if (k0 + kBK > rows.Sk || (rows.causal && k0 + kBK - 1 > rows.q0)) {
+    softmax_tile<true>(sc, pa, m, l, alpha, rows, k0);
+  } else {
+    softmax_tile<false>(sc, pa, m, l, alpha, rows, k0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
+                 float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk, Strides os,
+                 float scale, int causal) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t bar_full = base + L::kBars;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_qfull = bar_empty + 8 * kStages;
+  const uint32_t bar_qempty = bar_qfull + 8 * L::kQSlots;
+
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_work = n_qt * B * H;
+  const int n_rep = H / Hkv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
+    }
+    for (int slot = 0; slot < L::kQSlots; ++slot) {
+      mbar_init(bar_qfull + 8 * slot, 1);
+      mbar_init(bar_qempty + 8 * slot, 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Q tiles take the Q slots in turn and K/V tiles run through one ring
+  // for all of a block's items, so the producer loads the next item's
+  // first K/V tiles (and at D 64 its Q) while the consumers finish this
+  // one and write it out.
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int kv = 0;  // K/V tiles loaded so far: the ring's running count
+      for (int n = 0; item_of(n, blockIdx.x, gridDim.x) < n_work; ++n) {
+        const Work w = work_at(item_of(n, blockIdx.x, gridDim.x), H, B * H, n_qt);
+        const int slot = n % L::kQSlots;
+        mbar_wait(bar_qempty + 8 * slot, ((n / L::kQSlots) & 1) ^ 1);
+        mbar_expect_tx(bar_qfull + 8 * slot, kBQ * D * 2);
+        tma_load_rows<D>(base + L::kQ + slot * L::kQTile, &q_map, bar_qfull + 8 * slot, w.h,
+                         w.qt * kBQ, w.b, L::kQPanel);
+        const int nk = kv_tiles(w.qt * kBQ, Sq, Sk, causal);
+        for (int j = 0; j < nk; ++j, ++kv) {
+          const int s = kv % kStages;
+          mbar_wait(bar_empty + 8 * s, ((kv / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, 2 * kBK * D * 2);
+          tma_load_rows<D>(base + L::kK + s * L::kKVTile, &k_map, bar_full + 8 * s,
+                           w.h / n_rep, j * kBK, w.b, L::kKVPanel);
+          tma_load_rows<D>(base + L::kV + s * L::kKVTile, &v_map, bar_full + 8 * s,
+                           w.h / n_rep, j * kBK, w.b, L::kKVPanel);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_a = (t / 32) * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
+    int kv = 0;  // K/V tiles consumed so far
+
+    for (int n = 0; item_of(n, blockIdx.x, gridDim.x) < n_work; ++n) {
+      const Work w = work_at(item_of(n, blockIdx.x, gridDim.x), H, B * H, n_qt);
+      const int slot = n % L::kQSlots;
+      const int q0 = w.qt * kBQ;
+      const int wq0 = q0 + wg * 64;
+      const int nk = kv_tiles(q0, Sq, Sk, causal);
+      const int q_off = L::kQ + slot * L::kQTile;  // this item's Q slot
+      const uint32_t q_rows = base + q_off + wg * 64 * 128;
+
+      // bf16(q * scale) in place over this warpgroup's rows, 16 bytes a step
+      mbar_wait(bar_qfull + 8 * slot, (n / L::kQSlots) & 1);
+      for (int i = t; i < 64 * (D / 8); i += 128) {
+        const int p = i / 512;
+        uint4* ptr = reinterpret_cast<uint4*>(smem + q_off + p * L::kQPanel + wg * 64 * 128 +
+                                              (i % 512) * 16);
+        uint4 val = *ptr;
         bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
         for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+        *ptr = val;
       }
-    }
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::kLdQ + c) = val;
-  }
-}
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int H, int Hkv, int Sq, int Sk,
-                 Strides qs, Strides ks, Strides vs, Strides os,
-                 float scale, int causal) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kQ);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kK);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kV);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::kP);
-
-  // heaviest causal tiles (the last q rows) first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q0 = qt * kBQ;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-
-  load_tile<D, true>(sQ, qb, qs.s, q0, Sq, scale);
-  __syncthreads();
-
-  // this warp's 16 query rows as tensor-core operands, kept for every tile
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[D / 16];
+      float o_acc[D / 2];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qf[kk], sQ + warp * 16 * L::kLdQ + kk * 16, L::kLdQ);
-  }
+      for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this thread's partial row sums
+      float alpha[2];
+      float sc[kBK / 2];  // S of the newest tile, read only by the softmax
+      // bf16(P) of two tiles in turn: P V reads one while the softmax of
+      // the next tile writes the other.  Two arrays, not one and a copy: a
+      // copy lets the compiler give both the same registers, which ptxas
+      // then protects by serializing every wgmma
+      uint32_t pa[kBK / 4], pb[kBK / 4];
+      const Rows rows{q0, wq0 + row_a, lane, Sk, causal};
 
-  // softmax / accumulator ownership: lane -> row r of the warp's 16 rows,
-  // half of the columns (two lanes per row)
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int q_pos = q0 + warp * 16 + r;
-  float* sSw = sS + warp * 16 * L::kLdS;
-  bf16* sPw = sP + warp * 16 * L::kLdP;
+      // tile 0: S and its softmax
+      mbar_wait(bar_full + 8 * (kv % kStages), (kv / kStages) & 1);
+      wgmma_fence();
+      issue_s<D>(sc, q_rows, base + L::kK + (kv % kStages) * L::kKVTile);
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      softmax_tile(sc, pa, m, l, alpha, rows, 0);
 
-  float m = kNegInf;
-  float l = 0.f;
-  float acc[D / 2];
+      // step `it` issues S of tile it and then P V of tile it - 1 (P in
+      // p_run), waits for S only, and runs the softmax of tile it into
+      // p_next while P V still runs; then O, which holds every tile before
+      // this one, takes this tile's max
+      auto step = [&](int it, const uint32_t(&p_run)[kBK / 4], uint32_t(&p_next)[kBK / 4]) {
+        const int s = (kv + it) % kStages;
+        const int sp = (kv + it - 1) % kStages;
+        mbar_wait(bar_full + 8 * s, ((kv + it) / kStages) & 1);
+        wgmma_fence();
+        issue_s<D>(sc, q_rows, base + L::kK + s * L::kKVTile);
+        wgmma_commit();
+        issue_pv<D>(o_acc, p_run, base + L::kV + sp * L::kKVTile);
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(sc);
+        softmax_tile(sc, p_next, m, l, alpha, rows, it * kBK);
+        wgmma_wait_all();
+        reg_fence(o_acc);
+        mbar_arrive(bar_empty + 8 * sp);  // tile it - 1's K and V stage is free
 #pragma unroll
-  for (int j = 0; j < D / 2; ++j) acc[j] = 0.f;
-
-  int n_tiles = (Sk + kBK - 1) / kBK;
-  if (causal) {
-    // tile j is live iff its first key <= the block's last query row
-    const int last_q = min(q0 + kBQ, Sq) - 1;
-    n_tiles = min(n_tiles, last_q / kBK + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kBK;
-    __syncthreads();                       // previous tile fully consumed
-    load_tile<D, false>(sK, kb, ks.s, k0, Sk, 0.f);
-    load_tile<D, false>(sV, vb, vs.s, k0, Sk, 0.f);
-    __syncthreads();
-
-    // S = (q * scale) K^T for this warp's rows: [16, 64] f32
-#pragma unroll
-    for (int n = 0; n < kBK / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf;
-      wmma::fill_fragment(sf, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sK + n * 16 * L::kLdQ + kk * 16, L::kLdQ);
-        wmma::mma_sync(sf, qf[kk], kf, sf);
+        for (int i = 0; i < D / 2; ++i) o_acc[i] *= alpha[(i / 2) % 2];
+      };
+      int it = 1;
+      for (; it + 1 < nk; it += 2) {
+        step(it, pa, pb);
+        step(it + 1, pb, pa);
       }
-      wmma::store_matrix_sync(sSw + n * 16, sf, L::kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
+      const bool last_in_b = it < nk;
+      if (last_in_b) step(it, pa, pb);
 
-    // online softmax on this lane's 32 scores of row r
-    float s_loc[kBK / 2];
-    float mx = kNegInf;
-#pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const int col = half * (kBK / 2) + j;
-      const int k_pos = k0 + col;
-      float s = sSw[r * L::kLdS + col];
-      if (k_pos >= Sk || (causal && q_pos < k_pos)) s = kNegInf;
-      s_loc[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kBK / 2; ++j) {
-      const float p = expf(s_loc[j] - m_new);
-      sum += p;
-      sPw[r * L::kLdP + half * (kBK / 2) + j] = __float2bfloat16(p);
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    const float alpha = expf(m - m_new);
-    l = alpha * l + sum;
-    m = m_new;
-    __syncwarp();
-
-    // PV = bf16(P) V for this warp's rows: [16, D] f32, staged through sS
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of;
-      wmma::fill_fragment(of, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pf;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-        wmma::load_matrix_sync(pf, sPw + kk * 16, L::kLdP);
-        wmma::load_matrix_sync(vf, sV + kk * 16 * L::kLdQ + n * 16, L::kLdQ);
-        wmma::mma_sync(of, pf, vf, of);
+      // P V of the last tile
+      const int sl = (kv + nk - 1) % kStages;
+      wgmma_fence();
+      if (last_in_b) {
+        issue_pv<D>(o_acc, pb, base + L::kV + sl * L::kKVTile);
+      } else {
+        issue_pv<D>(o_acc, pa, base + L::kV + sl * L::kKVTile);
       }
-      wmma::store_matrix_sync(sSw + n * 16, of, L::kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int j = 0; j < D / 2; ++j) {
-      acc[j] = acc[j] * alpha + sSw[r * L::kLdS + half * (D / 2) + j];
-    }
-    __syncwarp();
-  }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(o_acc);
+      mbar_arrive(bar_empty + 8 * sl);
+      kv += nk;
 
-  if (q_pos < Sq) {
-    const float inv_l = 1.f / l;
-    bf16* orow = o + b * os.b + (long long)q_pos * os.s + h * os.h + half * (D / 2);
+      // epilogue: O / l as bf16 staged over this warpgroup's Q rows, then
+      // 16-byte rows to device memory; the LSE per row
 #pragma unroll
-    for (int j = 0; j < D / 2; j += 8) {
-      uint4 pack;
-      bf16* e = reinterpret_cast<bf16*>(&pack);
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      }
+      const float inv[2] = {1.f / l[0], 1.f / l[1]};
 #pragma unroll
-      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(acc[j + u] * inv_l);
-      *reinterpret_cast<uint4*>(orow + j) = pack;
-    }
-    if (half == 0) {
-      lse[((long long)b * H + h) * Sq + q_pos] = m + logf(l);
+      for (int i = 0; i < D / 2; i += 2) {
+        const int r = (i / 2) % 2;
+        const int col = (i / 4) * 8 + (lane % 4) * 2;
+        const int row = wg * 64 + row_a + 8 * r;
+        *reinterpret_cast<uint32_t*>(smem + q_off + (col / 64) * L::kQPanel + row * 128 +
+                                     (col % 64) * 2) =
+            pack_bf16(o_acc[i] * inv[r], o_acc[i + 1] * inv[r]);
+      }
+      named_barrier(1 + wg, 128);
+      for (int i = t; i < 64 * (D / 8); i += 128) {
+        const int row = i / (D / 8);
+        const int c8 = i % (D / 8);
+        const int q = wq0 + row;
+        if (q < Sq) {
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              smem + q_off + (c8 / 8) * L::kQPanel + (wg * 64 + row) * 128 + (c8 % 8) * 16);
+          *reinterpret_cast<uint4*>(o + w.b * os.b + (long long)q * os.s + w.h * os.h +
+                                    c8 * 8) = val;
+        }
+      }
+      if (lane % 4 == 0) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = wq0 + row_a + 8 * r;
+          if (q < Sq) lse[((long long)w.b * H + w.h) * Sq + q] = m[r] + logf(l[r]);
+        }
+      }
+      // the Q slot is free for a later item: order this thread's
+      // shared-memory writes before the TMA that overwrites them
+      fence_proxy_async();
+      mbar_arrive(bar_qempty + 8 * slot);
     }
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int Hkv, int Sq, int Sk, Strides qs, Strides ks,
-           Strides vs, Strides os, float scale, int causal, cudaStream_t stream) {
-  constexpr size_t kSmem = Layout<D>::kBytes;
-  // above 48 KB of dynamic shared memory needs the opt-in (per device)
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
+           int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
+           float scale, int causal, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map;
+  if (!encode_rows_map(&q_map, q, D, H, Sq, B, qs.b, qs.s, qs.h, kBQ) ||
+      !encode_rows_map(&k_map, k, D, Hkv, Sk, B, ks.b, ks.s, ks.h, kBK) ||
+      !encode_rows_map(&v_map, v, D, Hkv, Sk, B, vs.b, vs.s, vs.h, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
+  // persistent: one block per SM, or one per work item where there are fewer
+  int dev = 0, sms = 0;
+  err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long n_work = (long long)((Sq + kBQ - 1) / kBQ) * B * H;
+  const int grid = static_cast<int>(n_work < sms ? n_work : sms);
   flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), H, Hkv, Sq, Sk, qs, ks, vs, os, scale, causal);
+      q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
+      os, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

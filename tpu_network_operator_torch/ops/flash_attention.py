@@ -3,9 +3,10 @@
 Counterpart of ``tpu_network_operator/ops/pallas_attention.py``.  The
 forward kernel (``csrc/flash_fwd.cu``) runs an online softmax over
 streamed key tiles so the [S, S] score matrix never reaches device memory
-and saves the f32 log-sum-exp; the backward kernels (``csrc/flash_bwd.cu``)
-recompute the probabilities from it, one kernel for dQ and one for dK/dV
-(which also sums each GQA group of q-heads onto its kv-head).  Beside them,
+and saves the f32 log-sum-exp; the backward kernels recompute the
+probabilities from it, one kernel for dQ (``csrc/flash_bwd.cu``) and one
+for dK/dV (``csrc/flash_bwd_dkv.cu``, which also sums each GQA group of
+q-heads onto its kv-head).  Beside them,
 :func:`_flash_fwd_plain` and :func:`_flash_bwd_plain` run the same
 blockwise algorithms in plain PyTorch and round to bf16 where the TPU
 kernels do (q * scale, dO, the probabilities and dS before their
@@ -15,10 +16,14 @@ interpret mode.
 :func:`flash_attention` is a ``torch.autograd.Function`` (the counterpart
 of the reference's ``custom_vjp`` around ``_flash_bhsd``).  Dispatch is by
 the tensors' device: CPU tensors take the plain versions, CUDA tensors the
-kernels, with no fallback between them and no switch.  The kernels tile at
-64x64 on the card whatever ``block_q``/``block_k`` say; those set the
-plain versions' blocking and are validated on both paths (the sequence
-lengths must divide by them), so the same shapes route the same way.
+kernels, with no fallback between them and no switch.  The kernels tile
+as :data:`FWD_TILE`, :data:`DQ_TILE` and :data:`DKV_TILE` say on the card,
+whatever ``block_q``/``block_k`` say; those set the plain versions'
+blocking and are validated on both paths (the sequence lengths must
+divide by them), so the same shapes route the same way.
+:func:`_flash_fwd_plain_at_tiles` and :func:`_flash_bwd_plain_at_tiles`
+run the plain versions at the kernels' tiles, the references a kernel is
+held to on the card.
 :func:`chunk_fwd` and :func:`chunk_bwd` are the raw per-chunk seams (not
 differentiable) that ring attention combines with a global lse and delta.
 """
@@ -33,6 +38,13 @@ from . import _kernels
 
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
+# the kernels' tiles as (query rows, keys): the forward runs 128-row q
+# tiles against 128-key tiles; dQ 64-row q tiles against 64-key tiles;
+# dK/dV 128-key tiles against 64-row q steps (so its plain version's
+# (block_q, block_k) is (64, 128))
+FWD_TILE = (128, 128)
+DQ_TILE = (64, 64)
+DKV_TILE = (64, 128)
 
 
 def _block_sizes(seq_q: int, seq_k: int, block_q: int,
@@ -193,6 +205,38 @@ def _flash_bwd_plain(q, k, v, do, lse, delta, *, block_q: int,
     :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`."""
     bp = _BwdPlain(q, k, v, do, lse, delta, block_q, block_k, causal)
     return (_flash_bwd_dq_plain(bp, dq_dtype), *_flash_bwd_dkv_plain(bp))
+
+
+def _plain_block(s: int, tile: int) -> int:
+    """The plain versions' block for ``s`` rows at a kernel tile of
+    ``tile``: the tile where it divides ``s``, else one block of all rows
+    (a ragged tail; the plain versions need blocks that divide)."""
+    return tile if s % min(tile, s) == 0 else s
+
+
+def _bwd_plain_at(q, k, v, do, lse, delta, tile, causal) -> _BwdPlain:
+    """:class:`_BwdPlain` blocked as a kernel of tile ``tile`` (q rows,
+    keys) blocks these sequences."""
+    return _BwdPlain(q, k, v, do, lse, delta,
+                     _plain_block(q.shape[2], tile[0]),
+                     _plain_block(k.shape[2], tile[1]), causal)
+
+
+def _flash_fwd_plain_at_tiles(q, k, v, *, causal: bool):
+    """:func:`_flash_fwd_plain` ([B, H, S, D]) at the forward kernel's
+    tiles: what ``csrc/flash_fwd.cu`` computes, in its blocking."""
+    return _flash_fwd_plain(
+        q, k, v, block_q=_plain_block(q.shape[2], FWD_TILE[0]),
+        block_k=_plain_block(k.shape[2], FWD_TILE[1]), causal=causal)
+
+
+def _flash_bwd_plain_at_tiles(q, k, v, do, lse, delta, *, causal: bool,
+                              dq_dtype: torch.dtype = torch.float32):
+    """:func:`_flash_bwd_plain` ([B, H, S, D]) at the backward kernels'
+    tiles: dq at :data:`DQ_TILE`, dk and dv (f32) at :data:`DKV_TILE`."""
+    args = (q, k, v, do, lse, delta)
+    dq = _flash_bwd_dq_plain(_bwd_plain_at(*args, DQ_TILE, causal), dq_dtype)
+    return (dq, *_flash_bwd_dkv_plain(_bwd_plain_at(*args, DKV_TILE, causal)))
 
 
 def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
