@@ -7,7 +7,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
 
 1. device: the torch device and ``nvidia-smi``'s name and power limit;
 2. build: compile the CUDA kernels from ``tpu_network_operator_torch/ops/
-   csrc`` (one ``nvcc`` per source, in parallel);
+   csrc`` (one ``nvcc`` per source, in parallel), with ptxas's registers
+   and spills per kernel; a note that ptxas serialized a kernel's
+   ``wgmma`` instructions fails the run;
 3. kernels: each kernel, forward and backward, against its plain PyTorch
    version on the card;
 4. generate: greedy ``generate`` of ``llama3-1b`` at full width and depth
@@ -103,12 +105,26 @@ DESIGN = {
                  "in a 3-stage TMA/mbarrier ring (128B swizzle); S and O "
                  "by wgmma, softmax in registers overlapped with the "
                  "warpgroup's own P V, P as register A operand",
+    "flash_bwd_dq": "persistent grid (a block per SM) over 128-row q "
+                    "tiles, 2 consumer warpgroups + TMA producer; Q and dO "
+                    "by TMA into two slots, 64-key K/V tiles in a 96 KB "
+                    "TMA/mbarrier ring; S, dP and dQ += dS K by wgmma (K "
+                    "read K-major and MN-major from one stage), dS in "
+                    "registers overlapped with the warpgroup's own dQ "
+                    "product",
     "flash_bwd_dkv": "128-key tile of one kv-head resident in shared memory,"
                      " 2 consumer warpgroups + producer warpgroup; 64-row "
                      "Q/dO steps in a 4-stage TMA/mbarrier ring, Q scaled "
                      "by the producer; S^T, dP^T, dV, dK by wgmma, dK/dV in "
                      "registers over the GQA group, elementwise work "
                      "overlapped with dV/dK at D 64",
+    "rms_norm_fwd": "one warp per row, warps walking rows grid-stride over "
+                    "a grid the card holds at once with the next row's "
+                    "loads in flight; the row in registers (16-byte loads, "
+                    "all issued before the reduction), a shuffle-only sum "
+                    "of squares, scale kept in registers across a warp's "
+                    "rows; eight warps a row where all rows fit on the "
+                    "card at once",
 }
 
 # published dense peaks per SKU: (device memory B/s, bf16 tensor FLOP/s,
@@ -277,8 +293,14 @@ def phase_build():
     t0 = time.perf_counter()
     path = _kernels.build()
     _kernels.lib()
+    report = _kernels.ptxas_report()
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-          "library": path.name})
+          "library": path.name,
+          "ptxas": None if report is None else report["kernels"]})
+    # a serialized wgmma costs the flash kernels their overlap, silently
+    check(report is not None, "no ptxas report beside the library")
+    check(not report["wgmma_serialized"],
+          f"ptxas serialized wgmma: {report['wgmma_serialized']}")
 
 
 def _rms_case(shape, gen):
@@ -304,18 +326,25 @@ def _flash_plain_bshd(q, k, v, causal):
 
 def phase_kernels():
     gen = torch.Generator("cuda").manual_seed(SEED)
-    for shape in [(64, 2048), (8192, 2048), (5, 4096)]:
+    # the decode (few rows: eight warps a row), prefill and train shapes,
+    # a wide row, the widest (half of it streamed past the registers), and
+    # rows that the warps walk in uneven turns
+    for shape in [(64, 2048), (8192, 2048), (12288, 2048), (5, 4096),
+                  (33, 8192), (4099, 2048)]:
         x, s = _rms_case(shape, gen)
         y, rstd = norms.fused_rms_norm(x, s, 1e-5)
+        y2, rstd2 = norms.fused_rms_norm(x, s, 1e-5)
         torch.cuda.synchronize()
         ref = norms._rms_norm_plain(x, s, 1e-5)
         ref_rstd = torch.rsqrt(x.float().square().mean(-1) + 1e-5)
         err = max_err(y, ref)
+        same_bits = torch.equal(bits(y), bits(y2)) and \
+            torch.equal(bits(rstd), bits(rstd2))
         ok = torch.allclose(y.float(), ref.float(), **RMS_TOL) and \
-            torch.allclose(rstd, ref_rstd, rtol=1e-5, atol=0)
+            torch.allclose(rstd, ref_rstd, rtol=1e-5, atol=0) and same_bits
         emit({"phase": "kernels", "kernel": "rms_norm_fwd",
               "shape": list(shape), "max_abs_err": err, "tol": RMS_TOL,
-              "ok": ok})
+              "repeat_same_bits": same_bits, "ok": ok})
         check(ok, f"rms_norm_fwd disagrees with its plain version at {shape}")
     cases = [(2, 32, 8, s, 64, c) for s in (128, 1024) for c in (True, False)]
     cases.append((2, 16, 4, 512, 128, True))
@@ -397,18 +426,17 @@ def phase_kernels_bwd():
     for b, h, hkv, s, d, causal in cases:
         inputs = _flash_bwd_inputs(b, h, hkv, s, d, causal, gen)
         outs = _flash_bwd_kernels(*inputs, causal)
-        # dK/dV sums each group in a fixed order, with no atomics: a
-        # second launch must give the same bits
-        again = fa._flash_bwd_dkv_kernel(*inputs, causal=causal, seq_dim=1,
-                                         head_dim=2, out_f32=False)
+        # no atomics, and dK/dV sums each group in a fixed order: a second
+        # launch of each must give the same bits
+        again = _flash_bwd_kernels(*inputs, causal)
         torch.cuda.synchronize()
         same_bits = all(torch.equal(bits(a), bits(r))
-                        for a, r in zip(outs[1:], again))
+                        for a, r in zip(outs, again))
         res, ok = _grads_ok(outs, _flash_bwd_plain_bshd(*inputs, causal))
         ok = ok and same_bits
         emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkv",
               "shape": [b, s, h, hkv, d], "causal": causal, **res,
-              "dkv_repeat_same_bits": same_bits,
+              "repeat_same_bits": same_bits,
               "tol": {"max_frac": GRAD_MAX_FRAC, "rel_norm": GRAD_REL},
               "ok": ok})
         check(ok, f"flash backward disagrees with its plain version at "
@@ -431,6 +459,60 @@ def phase_kernels_bwd():
               "ok": ok})
         check(ok, f"chunk_bwd disagrees with its plain version "
                   f"(causal={causal})")
+    # dQ at its edges: ragged rows and keys, Sq != Sk in [B, H, S, D]
+    # (the ring seam's past chunk), D 128 with n_rep 4 and 1, bf16 and f32
+    for case in DQ_EDGES:
+        dq_edge_case(gen, *case)
+
+
+# (b, sq, sk, h, hkv, d, causal, layout, out_f32)
+DQ_EDGES = [
+    (2, 200, 200, 8, 2, 64, True, "bshd", False),
+    (1, 777, 777, 4, 1, 64, True, "bshd", True),
+    (1, 777, 777, 8, 2, 128, False, "bshd", False),
+    (2, 192, 320, 8, 2, 64, False, "bhsd", True),
+    (1, 256, 512, 4, 1, 128, False, "bhsd", True),
+    (2, 512, 512, 16, 4, 128, True, "bshd", False),
+    (1, 384, 384, 8, 8, 128, True, "bhsd", True),
+]
+
+
+def dq_edge_case(gen, b, sq, sk, h, hkv, d, causal, layout, out_f32):
+    """The dQ kernel against its plain version at DQ_TILE, and its
+    repeat bits, in either layout."""
+    seq = 1 if layout == "bshd" else 2
+    dims = dict(seq_dim=seq, head_dim=3 - seq)
+
+    def bhsd(t):
+        return t.transpose(1, 2) if seq == 1 else t
+
+    def rnd(heads, n):
+        shape = (b, n, heads, d) if seq == 1 else (b, heads, n, d)
+        return torch.randn(shape, device="cuda", generator=gen).bfloat16()
+
+    q, k, v, do = rnd(h, sq), rnd(hkv, sk), rnd(hkv, sk), rnd(h, sq)
+    o, lse = fa._flash_fwd_kernel(q, k, v, causal=causal, **dims)
+    delta = fa.attention_delta(bhsd(o), bhsd(do))
+    kw = dict(causal=causal, out_f32=out_f32, **dims)
+    dq = fa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+    again = fa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    bp = fa._bwd_plain_at(*(bhsd(t) for t in (q, k, v, do)), lse, delta,
+                          fa.DQ_TILE, causal)
+    ref = bhsd(fa._flash_bwd_dq_plain(
+        bp, torch.float32 if out_f32 else torch.bfloat16))
+    res = grad_ok(dq, ref)
+    same_bits = torch.equal(bits(dq), bits(again))
+    ok = res["ok"] and same_bits and dq.dtype == ref.dtype \
+        and dq.shape == q.shape
+    emit({"phase": "kernels", "kernel": "flash_bwd_dq",
+          "shape": [b, sq, sk, h, hkv, d], "causal": causal,
+          "layout": layout, "out_f32": out_f32, **res,
+          "repeat_same_bits": same_bits,
+          "tol": {"max_frac": GRAD_MAX_FRAC, "rel_norm": GRAD_REL},
+          "ok": ok})
+    check(ok, f"flash_bwd_dq disagrees with its plain version at "
+              f"{(b, sq, sk, h, hkv, d, causal, layout, out_f32)}")
 
 
 def kernel_group(name: str) -> str:
@@ -1072,6 +1154,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "name": "rms_norm_fwd", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/rms_norm_fwd.cu",
         "replaces": "tpu_network_operator/ops/norms.py:91",
+        "design": DESIGN["rms_norm_fwd"],
         "launches": launches["rms_norm_fwd"],
         **rms_entry(BATCH * PROMPT), "decode": rms_entry(BATCH),
         "train": {**rms_entry(tb * ts),
@@ -1146,6 +1229,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "name": "flash_bwd_dq", **common,
         "source": "tpu_network_operator_torch/ops/csrc/flash_bwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:158",
+        "design": DESIGN["flash_bwd_dq"],
         "launches": train_launches["flash_bwd_dq"],
         "max_abs_err": res["dq"]["max_abs_err"],
         "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),

@@ -40,10 +40,11 @@ def _rel(a, ref):
 
 
 def test_tiles_are_the_kernels_blocking():
-    # forward: 128-row q tiles against 128-key tiles; dQ 64 x 64; dK/dV
-    # 128-key tiles against 64-row q steps, as (q rows, keys)
+    # forward: 128-row q tiles against 128-key tiles; dQ 128-row q tiles
+    # against 64-key tiles; dK/dV 128-key tiles against 64-row q steps, as
+    # (q rows, keys)
     assert tfa.FWD_TILE == (128, 128)
-    assert tfa.DQ_TILE == (64, 64)
+    assert tfa.DQ_TILE == (128, 64)
     assert tfa.DKV_TILE == (64, 128)
 
 
@@ -149,3 +150,54 @@ def test_bwd_plain_at_kernel_tiles_matches_pallas(d, n_rep, causal, dtype):
             np.testing.assert_allclose(t.numpy(), _np(j), atol=3e-2,
                                        err_msg=name)
             assert _rel(t, j) < 1e-2, name
+
+
+# the dQ kernel's blocking, as (d, sq, sk, n_rep, causal): D 64 and 128;
+# S 200, ragged (one plain block of all rows, as the kernel's masked tail
+# tile reduces to); Sq != Sk, the ring seam's past chunk with more keys
+# than queries
+DQ_CASES = [(64, 256, 256, 4, True), (128, 256, 256, 1, True),
+            (64, 200, 200, 2, True), (128, 200, 200, 4, False),
+            (64, 128, 384, 2, False), (128, 256, 384, 1, False)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,sq,sk,n_rep,causal", DQ_CASES)
+def test_dq_plain_at_dq_tile_matches_pallas(d, sq, sk, n_rep, causal, dtype):
+    # _flash_bwd_dq_plain blocked at DQ_TILE (what the card holds the dQ
+    # kernel to) against the Pallas _dq_kernel at the same blocking, f32
+    # dq as chunk_bwd gives it, from the same (the JAX forward's) lse and
+    # delta.  Tolerances as in the test above, for the same reasons: f32
+    # 1e-5 per element with 5e-4 absolute for a flipped bf16 rounding of p
+    # or dS, 1e-4 in relative norm; bf16 inputs 3e-2 absolute and 1e-2 in
+    # relative norm
+    rng = np.random.default_rng(1000 * d + sq + sk + 10 * n_rep + causal)
+    q, do = (rng.standard_normal((1, n_rep, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.standard_normal((1, 1, sk, d)).astype(np.float32)
+            for _ in range(2))
+    bq, bk = (tfa._plain_block(n, t) for n, t in zip((sq, sk), tfa.DQ_TILE))
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    tdt = torch.float32 if dtype == "float32" else torch.bfloat16
+    jq, jk, jv, jdo = (jnp.asarray(a, jdt) for a in (q, k, v, do))
+    jo, jlse = jpa.chunk_fwd(jq, jk, jv, causal=causal, block_q=bq,
+                             block_k=bk)
+    jdelta = jpa.attention_delta(jo, jdo)
+    ref = jpa.chunk_bwd(jq, jk, jv, jdo, jlse, jdelta, causal=causal,
+                        block_q=bq, block_k=bk)[0]
+
+    lse = torch.from_numpy(_np(jlse)[..., 0].copy())
+    delta = torch.from_numpy(_np(jdelta)[..., 0].copy())
+    bp = tfa._bwd_plain_at(*(torch.from_numpy(a).to(tdt)
+                             for a in (q, k, v, do)), lse, delta,
+                           tfa.DQ_TILE, causal)
+    assert (bp.bq, bp.bk) == (bq, bk)
+    dq = tfa._flash_bwd_dq_plain(bp, torch.float32)
+    assert dq.dtype == torch.float32 and dq.shape == ref.shape
+    if dtype == "float32":
+        np.testing.assert_allclose(dq.numpy(), _np(ref), rtol=1e-5,
+                                   atol=5e-4)
+        assert _rel(dq, ref) < 1e-4, _rel(dq, ref)
+    else:
+        np.testing.assert_allclose(dq.numpy(), _np(ref), atol=3e-2)
+        assert _rel(dq, ref) < 1e-2, _rel(dq, ref)

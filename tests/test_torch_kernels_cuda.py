@@ -41,14 +41,25 @@ def cuda():
 
 @pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
 @pytest.mark.parametrize("shape", [(1, 64), (7, 100), (3, 8192),
-                                   (1000, 2048), (2, 3, 4096)])
+                                   (1000, 2048), (2, 3, 4096),
+                                   (12288, 2048), (8192, 2048),
+                                   (4099, 8192), (4099, 2048)])
 def test_rms_norm_kernel_matches_plain(cuda, dtype, shape):
+    # the train and prefill shapes; hidden 8192, whose rows outrun a
+    # lane's registers and stream the rest; up to 1000 rows, whose blocks
+    # of eight warps all fit on the card at once: eight warps a row; 4099
+    # rows and more: a warp a row, walking several with the next one's
+    # loads in flight
     dt = DTYPES[dtype]
     x = (torch.randn(shape, device="cuda", generator=cuda) * 3).to(dt)
     s = (torch.randn(shape[-1], device="cuda", generator=cuda) + 1).to(dt)
     before = _kernels.LAUNCHES["rms_norm_fwd"]
     y, rstd = tnorms.fused_rms_norm(x, s, 1e-5)
     assert _kernels.LAUNCHES["rms_norm_fwd"] == before + 1
+    # fixed summation orders, no atomics: a repeat gives the same bits
+    again = tnorms.fused_rms_norm(x, s, 1e-5)
+    assert torch.equal(_bits(again[0]), _bits(y))
+    assert torch.equal(_bits(again[1]), _bits(rstd))
     assert y.dtype == dt and y.shape == x.shape
     assert rstd.shape == (x.numel() // shape[-1],)
     rtol, atol = RMS_TOL[dtype]
@@ -329,7 +340,7 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert _rel(g.cpu(), r) < 3e-2
 
 
-# -- the Hopper flash forward and dK/dV kernels: edge cases -------------------
+# -- the Hopper flash kernels: edge cases --------------------------------------
 
 
 def _to_bhsd(layout):
@@ -408,6 +419,43 @@ def test_flash_dkv_kernel_edges(cuda, b, sq, sk, h, hkv, d, causal, layout,
     _assert_grad_close(dv, rv, "dv")
 
 
+def _dq_plain(q, k, v, do, lse, delta, causal, layout, out_f32):
+    t = _to_bhsd(layout)
+    bp = tfa._bwd_plain_at(*(t(x) for x in (q, k, v, do)), lse, delta,
+                           tfa.DQ_TILE, causal)
+    return t(tfa._flash_bwd_dq_plain(
+        bp, torch.float32 if out_f32 else torch.bfloat16))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,hkv,d,causal,layout,out_f32", [
+    (2, 200, 200, 8, 2, 64, True, "bshd", False),      # ragged rows, keys
+    (1, 777, 777, 4, 1, 64, True, "bshd", True),
+    (1, 777, 777, 8, 2, 128, False, "bshd", False),
+    (2, 192, 320, 8, 2, 64, False, "bhsd", True),      # past chunk, f32
+    (1, 256, 512, 4, 1, 128, False, "bhsd", True),
+    (2, 192, 320, 8, 2, 64, False, "bhsd", False),
+    (2, 512, 512, 16, 4, 128, True, "bshd", False),    # D 128, n_rep 4, 1
+    (1, 384, 384, 8, 8, 128, True, "bhsd", True),
+])
+def test_flash_dq_kernel_edges(cuda, b, sq, sk, h, hkv, d, causal, layout,
+                               out_f32):
+    q, k, v = _qkv(cuda, b, sq, sk, h, hkv, d, layout)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).bfloat16()
+    o, lse = _fwd_kernel(q, k, v, causal, layout)
+    seq = 1 if layout == "bshd" else 2
+    delta = tfa.attention_delta(*((o, do) if seq == 2 else
+                                  (o.transpose(1, 2), do.transpose(1, 2))))
+    dims = dict(seq_dim=seq, head_dim=3 - seq)
+    before = _kernels.LAUNCHES["flash_bwd_dq"]
+    dq = tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal=causal,
+                                  out_f32=out_f32, **dims)
+    assert _kernels.LAUNCHES["flash_bwd_dq"] == before + 1
+    want = torch.float32 if out_f32 else torch.bfloat16
+    assert dq.dtype == want and dq.shape == q.shape
+    ref = _dq_plain(q, k, v, do, lse, delta, causal, layout, out_f32)
+    _assert_grad_close(dq, ref, "dq")
+
+
 @pytest.mark.parametrize("d", [64, 128])
 def test_flash_kernels_repeat_bits(cuda, d):
     # no atomics and a fixed order: a second launch gives the same bits
@@ -418,8 +466,10 @@ def test_flash_kernels_repeat_bits(cuda, d):
                                    head_dim=2)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
     kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
-    first = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
-    second = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    first = (tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
+             *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    second = (tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
+              *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw))
     for a, r in zip(first, second):
         assert torch.equal(_bits(a), _bits(r))
 
@@ -431,6 +481,8 @@ def test_flash_kernels_in_a_cuda_graph(cuda):
     q, k, v, do, lse, delta = _flash_bwd_case(cuda, 2, 512, 8, 2, 64, True)
     kw = dict(causal=True, seq_dim=1, head_dim=2)
     eager = (*tfa._flash_fwd_kernel(q, k, v, **kw),
+             tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                      out_f32=False, **kw),
              *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
                                         out_f32=False, **kw))
     side = torch.cuda.Stream()
@@ -439,6 +491,8 @@ def test_flash_kernels_in_a_cuda_graph(cuda):
     with torch.cuda.stream(side):
         with torch.cuda.graph(graph, capture_error_mode="relaxed"):
             captured = (*tfa._flash_fwd_kernel(q, k, v, **kw),
+                        tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta,
+                                                 out_f32=False, **kw),
                         *tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta,
                                                    out_f32=False, **kw))
     torch.cuda.current_stream().wait_stream(side)

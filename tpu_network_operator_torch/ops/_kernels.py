@@ -10,7 +10,10 @@ started together, then one link.  The library lands in ``.kernel_build/``
 at the repository root under a name that carries a hash of every file under
 ``csrc/`` (sources and headers) and of the flags, so an edited source or
 header rebuilds and an unchanged tree loads at once.  A
-failed build raises with ``nvcc``'s error output.
+failed build raises with ``nvcc``'s error output.  The sources compile
+with ``-Xptxas -v``: ptxas's report (registers, spills, and its notes
+that it serialized a kernel's ``wgmma`` instructions) is kept beside the
+library and read by :func:`ptxas_report`.
 
 :data:`LAUNCHES` counts, per kernel, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else, so a run
@@ -22,12 +25,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -35,7 +39,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # kernel name -> launches since the last reset_launches()
@@ -107,19 +111,27 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtpunet_kernels_{digest.hexdigest()[:16]}.so"
 
 
-def _run(cmds, what: str) -> None:
+def _run(cmds, what: str) -> List[str]:
+    """Run the commands at once; their output, or raise with the
+    failures'."""
     procs = [
         subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                          text=True)
         for c in cmds
     ]
-    errors = []
+    outputs, errors = [], []
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
+        outputs.append(out + err)
         if proc.returncode != 0:
             errors.append(f"$ {' '.join(cmd)}\n{out}{err}")
     if errors:
         raise RuntimeError(f"kernel {what} failed:\n" + "\n".join(errors))
+    return outputs
+
+
+def _log_path(target: Path) -> Path:
+    return target.with_suffix(".ptxas.txt")
 
 
 def build() -> Path:
@@ -131,13 +143,80 @@ def build() -> Path:
     nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
-        _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-              for src, obj in zip(_sources(), objs)], "compile")
+        logs = _run([[nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                     for src, obj in zip(_sources(), objs)], "compile")
+        _log_path(target).write_text("".join(
+            f"== {src.name}\n{log}" for src, log in zip(_sources(), logs)))
         partial = Path(tmp) / target.name
         _run([[nvcc, "-shared", *NVCC_FLAGS, *map(str, objs),
                "-o", str(partial)]], "link")
         os.replace(partial, target)
     return target
+
+
+def _demangle(name: str) -> str:
+    """A kernel's readable name from its mangled one: the function and
+    its template arguments (types, integer and bool literals), e.g.
+    ``flash_bwd_dq_kernel<64>``; the name as given if it is not of that
+    form."""
+    m = re.match(r"_ZN?", name)
+    rest, ident = name[m.end():] if m else "", None
+    while rest[:1].isdigit():          # the nested names; the last is ours
+        n = re.match(r"\d+", rest)
+        ident = rest[n.end():n.end() + int(n.group())]
+        rest = rest[n.end() + int(n.group()):]
+    if ident is None:
+        return name
+    if not rest.startswith("I"):
+        return ident
+    args, rest = [], rest[1:]
+    builtins = {"f": "float", "i": "int", "b": "bool", "d": "double"}
+    while rest and rest[0] != "E":
+        lit = re.match(r"L[ib](\d+)E", rest)
+        cls = re.match(r"(\d+)", rest)
+        if lit:
+            args.append(lit.group(1))
+            rest = rest[lit.end():]
+        elif cls:
+            n = int(cls.group(1))
+            args.append(rest[cls.end():cls.end() + n])
+            rest = rest[cls.end() + n:]
+        elif rest[0] in builtins:
+            args.append(builtins[rest[0]])
+            rest = rest[1:]
+        else:
+            return name
+    return f"{ident}<{','.join(args)}>"
+
+
+def parse_ptxas(log: str) -> dict:
+    """ptxas's ``-v`` report: per kernel entry, its registers and spilled
+    bytes; and every note that it serialized ``wgmma`` instructions
+    (C7513, C7515, C7520 and kin), which voids their overlap."""
+    kernels, notes, current = {}, [], None
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            current = _demangle(entry.group(1))
+            kernels[current] = {}
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill and current:
+            kernels[current]["spill_stores"] = int(spill.group(1))
+            kernels[current]["spill_loads"] = int(spill.group(2))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and current:
+            kernels[current]["registers"] = int(used.group(1))
+        if re.search(r"\(C75\d\d\)", line) and "wgmma" in line:
+            notes.append(line.strip())
+    return {"kernels": kernels, "wgmma_serialized": notes}
+
+
+def ptxas_report() -> Optional[dict]:
+    """:func:`parse_ptxas` of the built library's compile log (None if
+    the library was built without one)."""
+    log = _log_path(library_path())
+    return parse_ptxas(log.read_text()) if log.exists() else None
 
 
 def lib() -> ctypes.CDLL:

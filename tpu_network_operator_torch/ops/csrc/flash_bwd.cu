@@ -5,280 +5,410 @@
 // Pallas flash backward's dQ pass; its dK/dV pass is flash_bwd_dkv.cu).
 // Same function, from the forward's f32 log-sum-exp (lse) and
 // delta = rowsum(dO * O) (f32):
-//   P  = exp(S - lse) with S = bf16(q * scale) K^T (masked causally),
-//   dP = dO V^T,  dS = P * (dP - delta),  dQ = scale * dS K,
-// with bf16 tensor-core operands (q * scale, dO and dS rounded to bf16
-// where the TPU kernel rounds them) and f32 accumulation.
+//   P  = exp(S - lse) with S = bf16(q * scale) K^T, masked causally (row i
+//        sees key j iff i >= j),
+//   dP = dO V^T,  dS = P * (dP - delta),  dQ = scale * bf16(dS) K,
+// with bf16 tensor-core operands and f32 accumulation; dQ in bf16, or in
+// f32 for the ring seam's chunks.  GQA reads kv-head h / (H / Hkv) with no
+// copy; both layouts are read through strides.
 //
-// One 128-thread block per (64-row q tile, q-head, batch) keeps its Q and
-// dO rows as WMMA fragments, streams 64-key K/V tiles through shared
-// memory (only the causally live ones), and keeps the [64, D] dQ
-// accumulator in tensor-core accumulator fragments for the whole loop.
-// Each of the four warps owns 16 rows of the block's tile; the element-
-// wise part (exp, the dS product, masking) runs in f32 on a per-warp
-// shared-memory copy of the [16, 64] S and dP tiles, two lanes per row.
-// Bound on this card: the tensor-core rate (at S = 2048, D = 64 the three
-// products per tile pair are ~16 flops per byte moved), and this design is
-// far from it: the tiles are copied synchronously, with no overlap of
-// copies and products, and WMMA does not reach the wgmma rate.  TMA, wgmma
-// and a pipelined tile ring (hopper.cuh, as flash_fwd.cu and
-// flash_bwd_dkv.cu use them) are left for a later version.  Ragged tiles
-// are masked (any Sq, Sk); fully masked causal tiles are skipped.  Tensors
-// are addressed through strides, so the [B,S,H,D] and [B,H,S,D] layouts
-// are both read without a transpose.
+// Bound on this card: the tensor-core rate at the training shape (three
+// products per q-tile / key-tile pair: at S 2048, D 64 about 3 * 64 flops
+// per byte of K and V loaded per 128-row q tile, and each K/V tile is
+// loaded once per q tile).  Design, the forward's (flash_fwd.cu) with a
+// second product and no online max:
+//
+// * a persistent grid: one block of three warpgroups per SM walks the
+//   128-row q tiles of every (batch, q-head), each head's heaviest causal
+//   tile first (hopper.cuh's walk, shared with the forward).  Warpgroups 0
+//   and 1 each own 64 q rows; one thread of warpgroup 2 (the producer)
+//   issues every TMA load;
+// * Q and dO of a q tile arrive by TMA into one of two slots, so the next
+//   tile's load runs under this one's products; each consumer rounds its
+//   own Q rows to bf16(q * scale) in place and loads its rows' lse and
+//   delta into registers (plain loads: the rows of any Sq);
+// * 64-key K and V tiles stream by TMA (128-byte swizzle) through a ring
+//   of shared-memory stages (6 at D 64, 3 at D 128) under full / empty
+//   mbarriers, only the causally live ones;
+// * per key tile three wgmma chains: S = Q K^T and dP = dO V^T (operands
+//   from shared memory, K and V read K-major), then dQ += bf16(dS) K with
+//   dS packed in registers as the A operand and the same K stage read
+//   MN-major (no transposed copy).  P and dS are computed from the
+//   accumulator registers (exp2 with log2 e folded in, the mask on the
+//   diagonal and ragged tiles only): S, dP and dS never reach shared
+//   memory, and dQ stays in registers over the whole key loop;
+// * each warpgroup overlaps its elementwise work with its own products:
+//   step j issues S and dP of tile j and then dQ of tile j - 1, waits for
+//   S and dP only, and computes dS of tile j while dQ of tile j - 1 runs
+//   (two packed dS arrays in turn);
+// * the epilogue scales dQ, stages it over the warpgroup's own Q rows (and
+//   its dO rows for f32) and writes 16-byte rows; rows past Sq are not
+//   written.
+//
+// Registers per consumer thread: S and dP of a 64-key tile (32 f32 each),
+// dQ (D / 2) and two packed dS arrays (16 each).  128-key tiles at D 64
+// (64 f32 each for S and dP) left too few registers for the second dS
+// array: ptxas serialized every wgmma (C7512) and spilled 296 bytes; run
+// in order with one dS array they were no faster than 64-key tiles on an
+// H100 (PERF.md).  The producer gives registers up to the consumers
+// (setmaxnreg).  No atomics: a repeat gives the same bits.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace hopper;
 
-constexpr int kTile = 64;     // rows of every q and key tile
-constexpr int kWarps = 4;     // each warp owns 16 rows of the block's tile
-constexpr int kThreads = kWarps * 32;
+constexpr int kBQ = 128;           // q rows per work item (two warpgroups of 64)
+constexpr int kBK = 64;            // keys per streamed K/V tile
+constexpr int kThreads = 384;      // two consumer warpgroups + one producer
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
-  long long b, s, h;          // element strides; the head_dim stride is 1
+  long long b, s, h;  // element strides; the head_dim stride is 1
 };
 
 template <int D>
-struct Layout {
-  static constexpr int kLdT = D + 8;                  // bf16 pitch of [64, D] tiles
-  static constexpr int kLdP = kTile + 8;              // bf16 pitch of [64, 64] dS
-  static constexpr int kWide = D > kTile ? D : kTile;
-  static constexpr int kLdS = kWide + 4;              // f32 pitch of S / dP / staging
-  static constexpr size_t kTileBytes = sizeof(bf16) * kTile * kLdT;
-  static constexpr size_t kF32Bytes = sizeof(float) * kTile * kLdS;
-  static constexpr size_t kPBytes = sizeof(bf16) * kTile * kLdP;
-  // four bf16 tiles (Q, dO, K, V), S and dP in f32, then dS in bf16
-  static constexpr size_t kT0 = 0;
-  static constexpr size_t kS = 4 * kTileBytes;
-  static constexpr size_t kDP = kS + kF32Bytes;
-  static constexpr size_t kDS = kDP + kF32Bytes;
-  static constexpr size_t kBytes = kDS + kPBytes;
+struct Smem {
+  static constexpr int kQSlots = 2;               // Q + dO of two work items
+  static constexpr int kQPanel = kBQ * 128;       // bytes of one 64-column panel of Q
+  static constexpr int kKVPanel = kBK * 128;      // ... of a K or V tile
+  static constexpr int kQTile = kQPanel * (D / 64);
+  static constexpr int kKVTile = kKVPanel * (D / 64);
+  static constexpr int kSlot = 2 * kQTile;        // a slot: the Q tile, then dO's
+  // the K/V ring: 96 KB, 6 stages deep at D 64 and 3 at D 128
+  static constexpr int kStages = 96 * 1024 / (2 * kKVTile);
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQSlots * kSlot;
+  static constexpr int kV = kK + kStages * kKVTile;
+  // full[kStages], empty[kStages], q_full[kQSlots], q_empty[kQSlots]
+  static constexpr int kBars = kV + kStages * kKVTile;
+  static constexpr int kUsed = kBars + 8 * (2 * kStages + 2 * kQSlots);
+  static constexpr int kBytes = kUsed + 1024;
+  static_assert(kBytes <= 232448, "more shared memory than a block may have");
+  // one block per SM: the register split of setmaxnreg below assumes it
+  static_assert(kUsed > 232448 / 2, "two blocks would fit on an SM");
 };
 
-// Copy rows [row0, row0 + 64) of one head into a padded bf16 tile, 16 bytes
-// per thread per step, zero-filling rows past `rows`.  With kScale each
-// element becomes bf16(float(x) * scale), the TPU kernels' rounding of
-// q * scale.
-template <int D, bool kScale>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, long long row_stride,
-                                          int row0, int rows, float scale) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kTile * kVecs; i += kThreads) {
-    const int r = i / kVecs;
-    const int c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-      if (kScale) {
+// acc = A B^T of one tile, [64, kBK] f32: A the warpgroup's 64 rows of
+// the Q (or dO) tile, B the K (or V) tile, both K-major
+template <int D>
+__device__ __forceinline__ void issue_rows_keys(float (&acc)[kBK / 2], uint32_t rows,
+                                                uint32_t tile) {
+  using L = Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    wgmma_ss_n64(acc, desc_k(rows, L::kQPanel, kk), desc_k(tile, L::kKVPanel, kk), kk > 0);
+  }
+}
+
+// dQ += bf16(dS) K of one tile: dS from registers as the A operand, the K
+// stage read MN-major
+template <int D>
+__device__ __forceinline__ void issue_dq(float (&dq)[D / 2], const uint32_t (&ds)[kBK / 4],
+                                         uint32_t k_tile) {
+  using L = Smem<D>;
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    if constexpr (D == 64) {
+      wgmma_rs_n64(dq, ds + 4 * kk, desc_mn(k_tile, L::kKVPanel, kk));
+    } else {
+      wgmma_rs_n128(dq, ds + 4 * kk, desc_mn(k_tile, L::kKVPanel, kk));
+    }
+  }
+}
+
+// what the mask needs: the block's first query row, this thread's first
+// row (its second is 8 below), its lane, Sk and causality
+struct Rows {
+  int q0, row, lane, Sk, causal;
+};
+
+// dS = P (dP - delta) of keys [k0, k0 + N) with P = exp(S - lse), from S
+// and dP, which it only reads (ptxas serializes wgmmas around registers
+// that other instructions write while one runs), packed to bf16 pairs as
+// the A fragments of dQ += dS K.  nlse: this thread's two rows' -lse *
+// log2 e; delta: theirs.  kMask: the tile may hold a key past Sk or above
+// the diagonal.
+template <bool kMask, int N>
+__device__ __forceinline__ void ds_tile(const float (&sc)[N / 2], const float (&dp)[N / 2],
+                                        uint32_t (&ds)[N / 4], const float (&nlse)[2],
+                                        const float (&delta)[2], const Rows& rows, int k0) {
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int r = (i / 2) % 2;
+    float p[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      p[e] = ex2_approx(fmaf(sc[i + e], kLog2e, nlse[r]));
+      if constexpr (kMask) {
+        const int col = k0 + (i / 4) * 8 + (rows.lane % 4) * 2 + e;
+        if (col >= rows.Sk || (rows.causal && col > rows.row + 8 * r)) p[e] = 0.f;
+      }
+    }
+    ds[i / 2] = pack_bf16(p[0] * (dp[i] - delta[r]), p[1] * (dp[i + 1] - delta[r]));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void tile_ds(const float (&sc)[N / 2], const float (&dp)[N / 2],
+                                        uint32_t (&ds)[N / 4], const float (&nlse)[2],
+                                        const float (&delta)[2], const Rows& rows, int k0) {
+  // the block's first row, not the warpgroup's: a branch on a value the
+  // same in every thread of the block keeps ptxas from serializing the
+  // wgmmas that run across it (a tile is unmasked iff its last key is at
+  // most the block's first row, so both warpgroups take the same branch)
+  if (k0 + N > rows.Sk || (rows.causal && k0 + N - 1 > rows.q0)) {
+    ds_tile<true, N>(sc, dp, ds, nlse, delta, rows, k0);
+  } else {
+    ds_tile<false, N>(sc, dp, ds, nlse, delta, rows, k0);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+                    const __grid_constant__ CUtensorMap k_map,
+                    const __grid_constant__ CUtensorMap v_map,
+                    const __grid_constant__ CUtensorMap do_map,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    void* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk, Strides dqs,
+                    float scale, int causal, int out_f32) {
+  using L = Smem<D>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes: align the tiles to it
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const uint32_t base = smem_addr(smem);
+  const uint32_t bar_full = base + L::kBars;
+  const uint32_t bar_empty = bar_full + 8 * kStages;
+  const uint32_t bar_qfull = bar_empty + 8 * kStages;
+  const uint32_t bar_qempty = bar_qfull + 8 * L::kQSlots;
+
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int n_work = n_qt * B * H;
+  const int n_rep = H / Hkv;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 256);
+    }
+    for (int slot = 0; slot < L::kQSlots; ++slot) {
+      mbar_init(bar_qfull + 8 * slot, 1);
+      mbar_init(bar_qempty + 8 * slot, 256);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // Q and dO take the slots in turn and K/V tiles run through one ring for
+  // all of a block's items, so the producer loads the next item's Q, dO
+  // and first K/V tiles while the consumers finish this one.
+  if (threadIdx.x >= 256) {
+    // ---- producer warpgroup: one thread issues every load
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      int kv = 0;  // K/V tiles loaded so far: the ring's running count
+      for (int n = 0; item_of(n, blockIdx.x, gridDim.x) < n_work; ++n) {
+        const Work w = work_at(item_of(n, blockIdx.x, gridDim.x), H, B * H, n_qt);
+        const int slot = n % L::kQSlots;
+        const uint32_t q_dst = base + L::kQ + slot * L::kSlot;
+        mbar_wait(bar_qempty + 8 * slot, ((n / L::kQSlots) & 1) ^ 1);
+        mbar_expect_tx(bar_qfull + 8 * slot, 2 * kBQ * D * 2);
+        tma_load_rows<D>(q_dst, &q_map, bar_qfull + 8 * slot, w.h, w.qt * kBQ, w.b, L::kQPanel);
+        tma_load_rows<D>(q_dst + L::kQTile, &do_map, bar_qfull + 8 * slot, w.h, w.qt * kBQ, w.b,
+                         L::kQPanel);
+        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal);
+        for (int j = 0; j < nk; ++j, ++kv) {
+          const int s = kv % kStages;
+          mbar_wait(bar_empty + 8 * s, ((kv / kStages) & 1) ^ 1);
+          mbar_expect_tx(bar_full + 8 * s, 2 * kBK * D * 2);
+          tma_load_rows<D>(base + L::kK + s * L::kKVTile, &k_map, bar_full + 8 * s,
+                           w.h / n_rep, j * kBK, w.b, L::kKVPanel);
+          tma_load_rows<D>(base + L::kV + s * L::kKVTile, &v_map, bar_full + 8 * s,
+                           w.h / n_rep, j * kBK, w.b, L::kKVPanel);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 query rows each
+    setmaxnreg_inc<240>();
+    const int wg = threadIdx.x / 128;
+    const int t = threadIdx.x % 128;
+    const int lane = t % 32;
+    const int row_a = (t / 32) * 16 + lane / 4;  // this thread's rows: row_a, row_a + 8
+    int kv = 0;  // K/V tiles consumed so far
+
+    for (int n = 0; item_of(n, blockIdx.x, gridDim.x) < n_work; ++n) {
+      const Work w = work_at(item_of(n, blockIdx.x, gridDim.x), H, B * H, n_qt);
+      const int slot = n % L::kQSlots;
+      const int q0 = w.qt * kBQ;
+      const int wq0 = q0 + wg * 64;
+      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal);
+      const int q_off = L::kQ + slot * L::kSlot;  // this item's slot: Q, then dO
+      const uint32_t q_rows = base + q_off + wg * 64 * 128;
+      const uint32_t do_rows = q_rows + L::kQTile;
+
+      // this thread's rows' -lse * log2 e and delta; rows past Sq take 0,
+      // so their zero Q and dO rows give dS = 0
+      float nlse[2], dlt[2];
+      const long long stat = ((long long)w.b * H + w.h) * Sq;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int q = wq0 + row_a + 8 * r;
+        nlse[r] = q < Sq ? -lse[stat + q] * kLog2e : 0.f;
+        dlt[r] = q < Sq ? delta[stat + q] : 0.f;
+      }
+
+      // bf16(q * scale) in place over this warpgroup's rows, 16 bytes a step
+      mbar_wait(bar_qfull + 8 * slot, (n / L::kQSlots) & 1);
+      for (int i = t; i < 64 * (D / 8); i += 128) {
+        const int p = i / 512;
+        uint4* ptr = reinterpret_cast<uint4*>(smem + q_off + p * L::kQPanel + wg * 64 * 128 +
+                                              (i % 512) * 16);
+        uint4 val = *ptr;
         bf16* e = reinterpret_cast<bf16*>(&val);
 #pragma unroll
         for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16(__bfloat162float(e[j]) * scale);
+        *ptr = val;
       }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+
+      float dq_acc[D / 2];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+      float sc[kBK / 2], dp[kBK / 2];  // S and dP of the newest tile
+      const Rows rows{q0, wq0 + row_a, lane, Sk, causal};
+      auto k_tile = [&](int i) { return base + L::kK + ((kv + i) % kStages) * L::kKVTile; };
+      auto v_tile = [&](int i) { return base + L::kV + ((kv + i) % kStages) * L::kKVTile; };
+
+      // tile 0: S and dP
+      mbar_wait(bar_full + 8 * (kv % kStages), (kv / kStages) & 1);
+      wgmma_fence();
+      issue_rows_keys<D>(sc, q_rows, k_tile(0));
+      issue_rows_keys<D>(dp, do_rows, v_tile(0));
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(sc);
+      reg_fence(dp);
+      // bf16(dS) of two tiles in turn: dQ += dS K reads one while the
+      // next tile's dS is written into the other.  Two arrays, not one
+      // and a copy: a copy lets the compiler give both the same
+      // registers, which ptxas then protects by serializing every wgmma
+      uint32_t da[kBK / 4], db[kBK / 4];
+      tile_ds<kBK>(sc, dp, da, nlse, dlt, rows, 0);
+
+      // step `it` issues S and dP of tile it and then dQ of tile it - 1
+      // (dS in ds_run), waits for S and dP only, and computes dS of tile
+      // it into ds_next while dQ still runs
+      auto step = [&](int it, const uint32_t(&ds_run)[kBK / 4], uint32_t(&ds_next)[kBK / 4]) {
+        mbar_wait(bar_full + 8 * ((kv + it) % kStages), ((kv + it) / kStages) & 1);
+        wgmma_fence();
+        issue_rows_keys<D>(sc, q_rows, k_tile(it));
+        issue_rows_keys<D>(dp, do_rows, v_tile(it));
+        wgmma_commit();
+        issue_dq<D>(dq_acc, ds_run, k_tile(it - 1));
+        wgmma_commit();
+        wgmma_wait<1>();
+        reg_fence(sc);
+        reg_fence(dp);
+        tile_ds<kBK>(sc, dp, ds_next, nlse, dlt, rows, it * kBK);
+        wgmma_wait_all();
+        reg_fence(dq_acc);
+        mbar_arrive(bar_empty + 8 * ((kv + it - 1) % kStages));  // tile it - 1 is done
+      };
+      int it = 1;
+      for (; it + 1 < nk; it += 2) {
+        step(it, da, db);
+        step(it + 1, db, da);
+      }
+      const bool last_in_b = it < nk;
+      if (last_in_b) step(it, da, db);
+
+      // dQ of the last tile
+      wgmma_fence();
+      if (last_in_b) {
+        issue_dq<D>(dq_acc, db, k_tile(nk - 1));
+      } else {
+        issue_dq<D>(dq_acc, da, k_tile(nk - 1));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      reg_fence(dq_acc);
+      mbar_arrive(bar_empty + 8 * ((kv + nk - 1) % kStages));
+      kv += nk;
+
+      // epilogue: dQ * scale staged over this warpgroup's rows of the slot
+      // (bf16: its Q rows; f32, twice the bytes: its Q rows, then its dO
+      // rows, 32 columns to a 128-byte panel row), then 16-byte rows to
+      // device memory
+#pragma unroll
+      for (int i = 0; i < D / 2; i += 2) {
+        const int col = (i / 4) * 8 + (lane % 4) * 2;
+        const int row = (wg * 64 + row_a + 8 * ((i / 2) % 2)) * 128;
+        if (out_f32) {
+          *reinterpret_cast<float2*>(smem + q_off + (col / 32) * L::kQPanel + row +
+                                     (col % 32) * 4) =
+              make_float2(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+        } else {
+          *reinterpret_cast<uint32_t*>(smem + q_off + (col / 64) * L::kQPanel + row +
+                                       (col % 64) * 2) =
+              pack_bf16(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+        }
+      }
+      named_barrier(1 + wg, 128);
+      const int chunks = out_f32 ? D / 4 : D / 8;  // 16-byte chunks of a row
+      const long long head = w.b * dqs.b + w.h * dqs.h;
+      for (int i = t; i < 64 * chunks; i += 128) {
+        const int row = i / chunks;
+        const int c = i % chunks;
+        const int q = wq0 + row;
+        if (q < Sq) {
+          const uint4 val = *reinterpret_cast<const uint4*>(
+              smem + q_off + (c / 8) * L::kQPanel + (wg * 64 + row) * 128 + (c % 8) * 16);
+          const long long at = head + (long long)q * dqs.s;
+          if (out_f32) {
+            *reinterpret_cast<uint4*>(static_cast<float*>(dq) + at + c * 4) = val;
+          } else {
+            *reinterpret_cast<uint4*>(static_cast<bf16*>(dq) + at + c * 8) = val;
+          }
+        }
+      }
+      // the slot is free for a later item: order this thread's
+      // shared-memory accesses before the TMA that overwrites them
+      fence_proxy_async();
+      mbar_arrive(bar_qempty + 8 * slot);
     }
-    *reinterpret_cast<uint4*>(dst + r * Layout<D>::kLdT + c) = val;
   }
-}
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// out[16, 64] = A[16, D] B^T for this warp, with A's rows at `a` and B's 64
-// rows at `b` (both bf16 tiles of pitch kLdT), stored f32 at `out` (pitch
-// kLdS).
-template <int D>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a, const bf16* b) {
-  using L = Layout<D>;
-#pragma unroll
-  for (int n = 0; n < kTile / 16; ++n) {
-    FragC acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      FragA fa;
-      FragBCol fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, L::kLdT);
-      wmma::load_matrix_sync(fb, b + n * 16 * L::kLdT + kk * 16, L::kLdT);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(out + n * 16, acc, L::kLdS, wmma::mem_row_major);
-  }
-}
-
-// acc[n] += A[16, 64] B[64, D] for this warp: A bf16 of pitch kLdP at `a`,
-// B the bf16 tile of pitch kLdT at `b`.
-template <int D>
-__device__ __forceinline__ void accumulate(FragC* acc, const bf16* a, const bf16* b) {
-  using L = Layout<D>;
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      FragA fa;
-      FragBRow fb;
-      wmma::load_matrix_sync(fa, a + kk * 16, L::kLdP);
-      wmma::load_matrix_sync(fb, b + kk * 16 * L::kLdT + n * 16, L::kLdT);
-      wmma::mma_sync(acc[n], fa, fb, acc[n]);
-    }
-  }
-}
-
-// Write this warp's [16, D] f32 staging rows (pitch kLdS) to `dst` row
-// `row` (if < rows): lane -> row lane / 2, half of the columns each.
-template <int D>
-__device__ __forceinline__ void write_rows(void* dst, long long base, long long row_stride,
-                                           const float* stage, int row0, int rows,
-                                           int out_f32) {
-  using L = Layout<D>;
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  if (row0 + r >= rows) return;
-  const float* src = stage + r * L::kLdS + half * (D / 2);
-  const long long off = base + (long long)(row0 + r) * row_stride + half * (D / 2);
-  if (out_f32) {
-    float* out = static_cast<float*>(dst) + off;
-#pragma unroll
-    for (int j = 0; j < D / 2; j += 4) {
-      *reinterpret_cast<float4*>(out + j) = make_float4(src[j], src[j + 1], src[j + 2], src[j + 3]);
-    }
-  } else {
-    bf16* out = static_cast<bf16*>(dst) + off;
-#pragma unroll
-    for (int j = 0; j < D / 2; j += 8) {
-      uint4 pack;
-      bf16* e = reinterpret_cast<bf16*>(&pack);
-#pragma unroll
-      for (int u = 0; u < 8; ++u) e[u] = __float2bfloat16(src[j + u]);
-      *reinterpret_cast<uint4*>(out + j) = pack;
-    }
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    void* __restrict__ dq, int H, int Hkv, int Sq, int Sk,
-                    Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs,
-                    float scale, int causal, int out_f32) {
-  using L = Layout<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::kT0);
-  bf16* sDO = reinterpret_cast<bf16*>(smem + L::kT0 + L::kTileBytes);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::kT0 + 2 * L::kTileBytes);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::kT0 + 3 * L::kTileBytes);
-  float* sS = reinterpret_cast<float*>(smem + L::kS);
-  float* sDP = reinterpret_cast<float*>(smem + L::kDP);
-  bf16* sDS = reinterpret_cast<bf16*>(smem + L::kDS);
-
-  // heaviest causal tiles (the last q rows) first
-  const int qt = gridDim.x - 1 - blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hk = h / (H / Hkv);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r = lane >> 1;
-  const int half = lane & 1;
-  const int q_pos = q0 + warp * 16 + r;
-
-  load_tile<D, true>(sQ, q + b * qs.b + h * qs.h, qs.s, q0, Sq, scale);
-  load_tile<D, false>(sDO, dout + b * dos.b + h * dos.h, dos.s, q0, Sq, 0.f);
-  const long long stat = ((long long)b * H + h) * Sq;
-  const float row_lse = q_pos < Sq ? lse[stat + q_pos] : 0.f;
-  const float row_delta = q_pos < Sq ? delta[stat + q_pos] : 0.f;
-
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-
-  const bf16* kb = k + b * ks.b + hk * ks.h;
-  const bf16* vb = v + b * vs.b + hk * vs.h;
-  const bf16* sQw = sQ + warp * 16 * L::kLdT;
-  const bf16* sDOw = sDO + warp * 16 * L::kLdT;
-  float* sSw = sS + warp * 16 * L::kLdS;
-  float* sDPw = sDP + warp * 16 * L::kLdS;
-  bf16* sDSw = sDS + warp * 16 * L::kLdP;
-
-  int n_tiles = (Sk + kTile - 1) / kTile;
-  if (causal) {
-    // key tile t is live iff its first key <= the block's last query row
-    const int last_q = min(q0 + kTile, Sq) - 1;
-    n_tiles = min(n_tiles, last_q / kTile + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * kTile;
-    __syncthreads();                       // previous tiles fully consumed
-    load_tile<D, false>(sK, kb, ks.s, k0, Sk, 0.f);
-    load_tile<D, false>(sV, vb, vs.s, k0, Sk, 0.f);
-    __syncthreads();
-
-    rows_times_tile_t<D>(sSw, sQw, sK);    // S  = bf16(q * scale) K^T
-    rows_times_tile_t<D>(sDPw, sDOw, sV);  // dP = dO V^T
-    __syncwarp();
-
-#pragma unroll 8
-    for (int j = 0; j < kTile / 2; ++j) {
-      const int col = half * (kTile / 2) + j;
-      const int k_pos = k0 + col;
-      const bool live = k_pos < Sk && !(causal && q_pos < k_pos);
-      const float p = live ? expf(sSw[r * L::kLdS + col] - row_lse) : 0.f;
-      const float ds = p * (sDPw[r * L::kLdS + col] - row_delta);
-      sDSw[r * L::kLdP + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-
-    accumulate<D>(acc, sDSw, sK);          // dQ += bf16(dS) K
-  }
-
-  // dQ = scale * acc, staged through this warp's S rows
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-#pragma unroll
-    for (int e = 0; e < acc[n].num_elements; ++e) acc[n].x[e] *= scale;
-    wmma::store_matrix_sync(sSw + n * 16, acc[n], L::kLdS, wmma::mem_row_major);
-  }
-  __syncwarp();
-  write_rows<D>(dq, b * dqs.b + h * dqs.h, dqs.s, sSw, q0 + warp * 16, Sq, out_f32);
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  // above 48 KB of dynamic shared memory needs the opt-in (per device)
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dq, int B, int H, int Hkv, int Sq, int Sk,
-              Strides qs, Strides ks, Strides vs, Strides dos, Strides dqs, float scale,
-              int causal, int out_f32, cudaStream_t stream) {
-  constexpr size_t kSmem = Layout<D>::kBytes;
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<D>, kSmem);
+int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq, int B, int H, int Hkv, int Sq, int Sk, Strides qs,
+           Strides ks, Strides vs, Strides dos, Strides dqs, float scale, int causal,
+           int out_f32, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, do_map;
+  if (!encode_rows_map(&q_map, q, D, H, Sq, B, qs.b, qs.s, qs.h, kBQ) ||
+      !encode_rows_map(&do_map, dout, D, H, Sq, B, dos.b, dos.s, dos.h, kBQ) ||
+      !encode_rows_map(&k_map, k, D, Hkv, Sk, B, ks.b, ks.s, ks.h, kBK) ||
+      !encode_rows_map(&v_map, v, D, Hkv, Sk, B, vs.b, vs.s, vs.h, kBK)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  constexpr int kSmem = Smem<D>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((Sq + kTile - 1) / kTile, H, B);
+  int grid = 0;
+  err = persistent_grid((long long)((Sq + kBQ - 1) / kBQ) * B * H, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
   flash_bwd_dq_kernel<D><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), dq, H, Hkv, Sq, Sk, qs, ks, vs, dos, dqs, scale,
-      causal, out_f32);
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), dq, B, H, Hkv, Sq, Sk, dqs, scale, causal, out_f32);
   return static_cast<int>(cudaGetLastError());
-}
-
-bool bad_shape(int B, int H, int Hkv, int Sq, int Sk) {
-  return B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0;
 }
 
 }  // namespace
@@ -298,17 +428,19 @@ extern "C" int tpunet_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    long long do_sb, long long do_ss, long long do_sh,
                                    long long dq_sb, long long dq_ss, long long dq_sh,
                                    float scale, int causal, int out_f32, void* stream) {
-  if (bad_shape(B, H, Hkv, Sq, Sk)) return static_cast<int>(cudaErrorInvalidValue);
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
   const Strides dos{do_sb, do_ss, do_sh}, dqs{dq_sb, dq_ss, dq_sh};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch_dq<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
-                           dqs, scale, causal, out_f32, s);
+      return launch<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos, dqs,
+                        scale, causal, out_f32, s);
     case 128:
-      return launch_dq<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
-                            dqs, scale, causal, out_f32, s);
+      return launch<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
+                         dqs, scale, causal, out_f32, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -15,7 +15,8 @@
 //
 // * a persistent grid: one block of three warpgroups per SM walks the
 //   128-row q tiles of every (batch, q-head), each head's heaviest causal
-//   tile (the last q rows) first.  Warpgroups 0 and 1 each own 64 query
+//   tile (the last q rows) first (hopper.cuh's walk, which the dQ kernel
+//   shares).  Warpgroups 0 and 1 each own 64 query
 //   rows, warpgroup 2 is the producer, one thread of which issues every
 //   TMA load;
 // * Q tiles arrive by TMA (into two slots in turn at D 64); each consumer
@@ -81,33 +82,6 @@ struct Smem {
   // one block per SM: the register split of setmaxnreg below assumes it
   static constexpr int kBytes = (kUsed > 120 * 1024 ? kUsed : 120 * 1024) + 1024;
 };
-
-// Work item `t` of the persistent grid: a 128-row q tile of one (batch,
-// q-head), heaviest causal tiles (the last q rows) first, every head's
-// before any lighter one
-struct Work {
-  int qt, h, b;
-};
-
-__device__ __forceinline__ Work work_at(int t, int H, int BH, int n_qt) {
-  const int r = t % BH;
-  return {n_qt - 1 - t / BH, r % H, r / H};
-}
-
-// The item block `blk` of `G` takes in round r: the blocks run the rounds
-// in turn forward and backward, so the heavier and lighter items of two
-// rounds even out over the blocks.  A round past the last item ends the
-// block's walk.
-__device__ __forceinline__ int item_of(int r, int blk, int G) {
-  return r * G + ((r & 1) ? G - 1 - blk : blk);
-}
-
-// the key tiles q rows [q0, q0 + kBQ) see: under the causal mask, tile j
-// is live iff its first key <= the tile's last query row
-__device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal) {
-  const int n = (Sk + kBK - 1) / kBK;
-  return causal ? min(n, (min(q0 + kBQ, Sq) - 1) / kBK + 1) : n;
-}
 
 // S = bf16(q * scale) K^T of one tile: [64, 128] f32 into registers
 template <int D>
@@ -252,7 +226,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(bar_qfull + 8 * slot, kBQ * D * 2);
         tma_load_rows<D>(base + L::kQ + slot * L::kQTile, &q_map, bar_qfull + 8 * slot, w.h,
                          w.qt * kBQ, w.b, L::kQPanel);
-        const int nk = kv_tiles(w.qt * kBQ, Sq, Sk, causal);
+        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal);
         for (int j = 0; j < nk; ++j, ++kv) {
           const int s = kv % kStages;
           mbar_wait(bar_empty + 8 * s, ((kv / kStages) & 1) ^ 1);
@@ -278,7 +252,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int slot = n % L::kQSlots;
       const int q0 = w.qt * kBQ;
       const int wq0 = q0 + wg * 64;
-      const int nk = kv_tiles(q0, Sq, Sk, causal);
+      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal);
       const int q_off = L::kQ + slot * L::kQTile;  // this item's Q slot
       const uint32_t q_rows = base + q_off + wg * 64 * 128;
 
@@ -422,13 +396,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  // persistent: one block per SM, or one per work item where there are fewer
-  int dev = 0, sms = 0;
-  err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int grid = 0;
+  err = persistent_grid((long long)((Sq + kBQ - 1) / kBQ) * B * H, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n_work = (long long)((Sq + kBQ - 1) / kBQ) * B * H;
-  const int grid = static_cast<int>(n_work < sms ? n_work : sms);
   flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
       os, scale, causal);

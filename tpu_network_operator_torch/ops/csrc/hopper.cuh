@@ -69,6 +69,48 @@ inline bool encode_rows_map(CUtensorMap* map, const void* base, int D, int heads
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The grid of a persistent kernel: one block per SM, or one per work item
+// where there are fewer.
+inline cudaError_t persistent_grid(long long n_work, int* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) *grid = static_cast<int>(n_work < sms ? n_work : sms);
+  return err;
+}
+
+// ---------------------------------------------------------------------------
+// Device: the persistent grid's walk over q tiles (flash_fwd.cu and the dQ
+// kernel of flash_bwd.cu).
+
+// Work item `t`: a q tile of one (batch, q-head), heaviest causal tiles
+// (the last q rows) first, every head's before any lighter one
+struct Work {
+  int qt, h, b;
+};
+
+__device__ __forceinline__ Work work_at(int t, int H, int BH, int n_qt) {
+  const int r = t % BH;
+  return {n_qt - 1 - t / BH, r % H, r / H};
+}
+
+// The item block `blk` of `G` takes in round r: the blocks run the rounds
+// in turn forward and backward, so the heavier and lighter items of two
+// rounds even out over the blocks.  A round past the last item ends the
+// block's walk.
+__device__ __forceinline__ int item_of(int r, int blk, int G) {
+  return r * G + ((r & 1) ? G - 1 - blk : blk);
+}
+
+// the BK-key tiles that q rows [q0, q0 + BQ) see: under the causal mask
+// (row i sees key j iff i >= j), tile j is live iff its first key <= the
+// tile's last query row
+template <int BQ, int BK>
+__device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal) {
+  const int n = (Sk + BK - 1) / BK;
+  return causal ? min(n, (min(q0 + BQ, Sq) - 1) / BK + 1) : n;
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared-memory addresses, mbarriers, TMA.
 

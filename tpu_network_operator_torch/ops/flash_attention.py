@@ -39,11 +39,11 @@ from . import _kernels
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128)
 # the kernels' tiles as (query rows, keys): the forward runs 128-row q
-# tiles against 128-key tiles; dQ 64-row q tiles against 64-key tiles;
+# tiles against 128-key tiles; dQ 128-row q tiles against 64-key tiles;
 # dK/dV 128-key tiles against 64-row q steps (so its plain version's
 # (block_q, block_k) is (64, 128))
 FWD_TILE = (128, 128)
-DQ_TILE = (64, 64)
+DQ_TILE = (128, 64)
 DKV_TILE = (64, 128)
 
 
