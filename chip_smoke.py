@@ -39,7 +39,16 @@ Phases, each printing JSON lines; any failure exits non-zero:
     bound, its plain version's time and one PyTorch library call's.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
-steps with carried state, bit for bit, and the table gains its row.
+steps with carried state, bit for bit, each leaf shape alone and the 12
+``llama3-1b`` leaves with three edge-case leaves in one launch; the table
+gives its time at the largest leaf, over the 12 leaves one launch each and
+in one launch, and inside the profiled adam8 step.
+
+    python3 chip_smoke.py --adam8-leaves
+
+times only the 8-bit AdamW update at the ``llama3-1b`` leaves through
+``AdamW8bit.apply`` (each leaf alone, all 12 at once, a separate
+``p.add_`` pass) and profiles the adam8 step's update launches.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -48,6 +57,7 @@ non-zero without one, printing no result.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -118,6 +128,15 @@ DESIGN = {
                      "by the producer; S^T, dP^T, dV, dK by wgmma, dK/dV in "
                      "registers over the GQA group, elementwise work "
                      "overlapped with dV/dK at D 64",
+    "adam8_fused": "one launch for up to 32 leaves (a leaf table passed by "
+                   "value), a persistent grid walking the leaves' "
+                   "concatenated 256-value blocks a warp each, the next "
+                   "block's loads in flight, p updated in place; per block "
+                   "on a warp-uniform branch: the division and root fast "
+                   "paths written out for moments in [2^-80, 2^40], no "
+                   "division for an all-zero block, the intrinsics "
+                   "otherwise; whole-row or unaligned leaves take a "
+                   "two-pass row loop in the same kernel",
     "rms_norm_fwd": "one warp per row, warps walking rows grid-stride over "
                     "a grid the card holds at once with the next row's "
                     "loads in flight; the row in registers (16-byte loads, "
@@ -527,11 +546,28 @@ def kernel_group(name: str) -> str:
     return "other"
 
 
-def profile_steps(run, steps: int) -> dict:
+def launch_events(prof, key: str) -> list:
+    """Every device kernel of a profile whose name holds ``key``, in the
+    order the card ran them: its device ms, and the name and device ms of
+    the kernel the card ran next."""
+    from torch.autograd import DeviceType
+
+    evs = sorted((e for e in prof.events()
+                  if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    return [{"ms": e.time_range.elapsed_us() / 1e3,
+             "next": nxt.name[:80] if nxt else None,
+             "next_ms": nxt.time_range.elapsed_us() / 1e3 if nxt else None}
+            for e, nxt in zip(evs, [*evs[1:], None]) if key in e.name]
+
+
+def profile_steps(run, steps: int, follow: str = "") -> dict:
     """torch.profiler over ``steps`` calls of ``run()``: wall time per
     step, the device's busy share (sum of kernel times over wall time; one
     stream, so kernels do not overlap) and the kernels that take the most
-    device time.  The profiler's own host cost is inside the wall time."""
+    device time; with ``follow``, every launch of the kernels whose name
+    holds it (:func:`launch_events`).  The profiler's own host cost is
+    inside the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -553,7 +589,7 @@ def profile_steps(run, steps: int) -> dict:
     for e in kernels:
         g = kernel_group(e.key)
         groups[g] = groups.get(g, 0.0) + e.self_device_time_total
-    return {
+    out = {
         "steps": steps,
         "step_ms": wall_us / steps / 1e3,
         "device_busy_share": busy_us / wall_us if busy_us else None,
@@ -566,6 +602,9 @@ def profile_steps(run, steps: int) -> dict:
             for e in top
         ],
     }
+    if follow:
+        out["launches_of_" + follow] = launch_events(prof, follow)
+    return out
 
 
 def profile_prefill(params, cfg, cache, prompt, calls: int = 3) -> dict:
@@ -813,16 +852,21 @@ def adam8_grad(shape, case: str, gen) -> torch.Tensor:
 
 
 def adam8_bytes(p: torch.Tensor) -> int:
-    """Bytes one adam8_fused launch must move for leaf p: p, g and both
-    codes read, the update and both codes written, both f32 block scales
-    read and written."""
+    """Bytes the 8-bit AdamW update must move for leaf p: p, g and both
+    codes read, p (written in place) and both codes written, both f32 block
+    scales read and written."""
     last = p.shape[-1] if p.dim() else 1
     nb = p.numel() // optim8bit._leaf_block(last, optim8bit.BLOCK)
     return p.numel() * (3 * p.element_size() + 4) + nb * 16
 
 
 ADAM8_OPS = 30   # f32 operations per value (dequantize, step, update, requantize)
-A8_NAMES = ("update", "param", "m_codes", "m_scales", "v_codes", "v_scales")
+A8_NAMES = ("param", "m_codes", "m_scales", "v_codes", "v_scales")
+# the llama3-1b leaves' shapes, in tree order
+A8_LLAMA_SHAPES = [(128256, 2048), (16, 2048, 2048), (16, 2048, 512),
+                   (16, 2048, 512), (16, 2048, 2048), (16, 2048, 8192),
+                   (16, 2048, 8192), (16, 8192, 2048), (16, 2048),
+                   (16, 2048), (2048,), (2048, 128256)]
 
 
 def _a8_leaf(p: torch.Tensor):
@@ -830,17 +874,26 @@ def _a8_leaf(p: torch.Tensor):
     return p, st["m"]["p"], st["v"]["p"]
 
 
+def _a8_out(leaf) -> tuple:
+    p, m, v = leaf
+    return (p, m.q, m.scale, v.q, v.scale)
+
+
 def _a8_mismatches(out, ref) -> dict:
     return {n: int((bits(a) != bits(b)).sum()) for n, a, b in
             zip(A8_NAMES, out, ref)}
 
 
-def _a8_within_tol(out, ref) -> bool:
-    upd, _, mq, ms, vq, vs = out
-    rupd, _, rmq, rms, rvq, rvs = ref
-    return (torch.allclose(upd.float(), rupd.float(),
-                           rtol=A8_TOL["update_rtol"],
-                           atol=A8_TOL["update_atol"])
+def _a8_within_tol(out, ref, before) -> bool:
+    """A8_TOL for one bf16 leaf: p's step within the update tolerance of
+    the plain version's step (plus one bf16 rounding of p), the int8 codes
+    equal, the scales and the v codes within their tolerances."""
+    p, mq, ms, vq, vs = out
+    rp, rmq, rms, rvq, rvs = ref
+    step, rstep = p.float() - before.float(), rp.float() - before.float()
+    room = (A8_TOL["update_atol"] + A8_TOL["update_rtol"] * rstep.abs()
+            + 2.0 ** -8 * before.float().abs())
+    return (bool(torch.all((step - rstep).abs() <= room))
             and torch.equal(mq, rmq)
             and torch.allclose(ms, rms, rtol=A8_TOL["scale_rtol"], atol=0)
             and torch.allclose(vs, rvs, rtol=A8_TOL["scale_rtol"], atol=0)
@@ -848,60 +901,88 @@ def _a8_within_tol(out, ref) -> bool:
                                rtol=A8_TOL["v_code_rtol"], atol=0))
 
 
-def phase_kernels_adam8():
-    """adam8_fused against its plain version on the card, three steps with
-    carried state, and a second kernel run that must repeat its bits."""
-    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+def adam8_tree_case(spec, gen) -> dict:
+    """One tree of bf16 leaves (``spec``: (shape, gradient case) each)
+    stepped three times with carried state by adam8_fused (twice: the run
+    and its repeat) and by adam8_plain; after every step each leaf's p,
+    codes and scales are compared, bit for bit."""
     opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
-    cases = [((128256, 2048), "random"), ((16, 2048, 512), "random"),
-             ((2048,), "random"), ((3, 77), "random"),
-             ((8, 512), "zero_block"), ((16, 256), "e4m3_limit")]
-    for shape, case in cases:
-        p0 = (torch.randn(shape, device="cuda", generator=gen) * 0.1
-              ).bfloat16()
-        runs = {name: _a8_leaf(p0.clone())
-                for name in ("kernel", "repeat", "plain")}
-        steps, ok = [], True
-        for i in (1, 2, 3):
-            g = adam8_grad(shape, case, gen)
-            k = opt.consts(i)
-            outs = {}
-            for name, (p, m, v) in runs.items():
-                fn = (optim8bit._leaf_update_plain if name == "plain"
-                      else optim8bit.adam8_fused)
-                upd = fn(p, g, m, v, k)
-                p.add_(upd)
-                outs[name] = (upd, p, m.q, m.scale, v.q, v.scale)
-            torch.cuda.synchronize()
-            mism = _a8_mismatches(outs["kernel"], outs["plain"])
-            repeat = _a8_mismatches(outs["kernel"], outs["repeat"])
-            identical = not any(mism.values())
-            ok = ok and not any(repeat.values()) and (
-                identical or _a8_within_tol(outs["kernel"], outs["plain"]))
+    p0 = [(torch.randn(shape, device="cuda", generator=gen) * 0.1).bfloat16()
+          for shape, _ in spec]
+    runs = {name: [_a8_leaf(p.clone()) for p in p0]
+            for name in ("kernel", "repeat", "plain")}
+    del p0
+    steps, ok, launches = [], True, []
+    for i in (1, 2, 3):
+        grads = [adam8_grad(shape, case, gen) for shape, case in spec]
+        before = [p.clone() for p, _, _ in runs["plain"]]
+        for name, leaves in runs.items():
+            call = [(p, g, m, v) for (p, m, v), g in zip(leaves, grads)]
+            if name == "plain":
+                optim8bit.adam8_plain(call, opt.consts(i))
+            else:
+                start = _kernels.LAUNCHES["adam8_fused"]
+                optim8bit.adam8_fused(call, opt.consts(i))
+                launches.append(_kernels.LAUNCHES["adam8_fused"] - start)
+        torch.cuda.synchronize()
+        mism = dict.fromkeys(A8_NAMES, 0)
+        repeat = dict.fromkeys(A8_NAMES, 0)
+        for j, (_, case) in enumerate(spec):
+            out, ref = (_a8_out(runs[n][j]) for n in ("kernel", "plain"))
+            this = _a8_mismatches(out, ref)
+            again = _a8_mismatches(out, _a8_out(runs["repeat"][j]))
+            for n in A8_NAMES:
+                mism[n] += this[n]
+                repeat[n] += again[n]
+            ok = ok and not any(again.values()) and (
+                not any(this.values())
+                or _a8_within_tol(out, ref, before[j]))
             if case == "e4m3_limit" and i == 1:
-                top = outs["kernel"][4].view(-1, 256)[:, 0].float()
+                top = out[3].view(-1, 256)[:, 0].float()
                 ok = ok and bool(torch.all(top == 448.0))
-            steps.append({"step": i, "bit_identical": identical,
-                          "mismatches": mism, "repeat_mismatches": repeat,
-                          "max_abs_err_update": max_err(outs["kernel"][0],
-                                                        outs["plain"][0])})
+        steps.append({"step": i, "bit_identical": not any(mism.values()),
+                      "mismatches": mism, "repeat_mismatches": repeat,
+                      "max_abs_err_param": max(
+                          max_err(a[0], b[0]) for a, b in
+                          zip(runs["kernel"], runs["plain"]))})
+        del grads, before
+    for j, (_, case) in enumerate(spec):
         if case == "zero_block":
-            _, m, v = runs["kernel"]
+            _, m, v = runs["kernel"][j]
             ok = ok and m.scale.view(-1)[0].item() == 1.0 \
                 and v.scale.view(-1)[0].item() == 1.0
+    want = -(-sum(1 for shape, _ in spec if math.prod(shape))
+             // optim8bit.TABLE_LEAVES)
+    ok = ok and all(n == want for n in launches)
+    return {"steps": steps, "launches_per_call": launches, "ok": ok}
+
+
+def phase_kernels_adam8():
+    """adam8_fused against its plain version on the card, three steps with
+    carried state, and a second kernel run that must repeat its bits: each
+    leaf shape alone, then one tree of the 12 llama3-1b leaves with the
+    whole-row, zero-block and e4m3-limit leaves, in one launch."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 8)
+    cases = [[((128256, 2048), "random")], [((16, 2048, 512), "random")],
+             [((2048,), "random")], [((3, 77), "random")],
+             [((8, 512), "zero_block")], [((16, 256), "e4m3_limit")],
+             [*((s, "random") for s in A8_LLAMA_SHAPES),
+              ((3, 77), "random"), ((8, 512), "zero_block"),
+              ((16, 256), "e4m3_limit")]]
+    for spec in cases:
+        res = adam8_tree_case(spec, gen)
         emit({"phase": "kernels", "kernel": "adam8_fused",
-              "shape": list(shape), "case": case, "steps": steps,
-              "tol_if_not_bit_identical": A8_TOL, "ok": ok})
-        check(ok, f"adam8_fused disagrees with its plain version at "
-                  f"{shape} ({case})")
-        del runs, outs, p0
-    torch.cuda.empty_cache()
+              "leaves": [[list(shape), case] for shape, case in spec],
+              **res, "tol_if_not_bit_identical": A8_TOL})
+        check(res["ok"], f"adam8_fused disagrees with its plain version on "
+                         f"{[shape for shape, _ in spec]}")
+        torch.cuda.empty_cache()
 
 
-def phase_train_adam8(name: str) -> dict:
-    bw, _, _ = peaks(name)
+def adam8_cell():
+    """The llama3-1b+ffn+adam8 cell's config, train step, initial
+    parameters and optimizer state, and its fixed batch."""
     cfg = train_cfg(remat_policy="ffn", xent_chunk=A8_CHUNK)
-    n = cfg.layers
     opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
     step, init_all, _ = make_train_step(cfg, optimizer=opt, device="cuda")
     gen = torch.Generator("cuda").manual_seed(SEED + 9)
@@ -909,6 +990,13 @@ def phase_train_adam8(name: str) -> dict:
     params, opt_state = init_all(gen)
     tokens = torch.randint(0, cfg.vocab_size, (A8_BATCH, A8_SEQ + 1),
                            device="cuda", generator=gen)
+    return cfg, step, params, opt_state, tokens
+
+
+def phase_train_adam8(name: str) -> dict:
+    bw, _, _ = peaks(name)
+    cfg, step, params, opt_state, tokens = adam8_cell()
+    n = cfg.layers
     leaves = list(training.tree_leaves(params))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -927,8 +1015,10 @@ def phase_train_adam8(name: str) -> dict:
         per_step.append(dict(_kernels.LAUNCHES))
     peak = torch.cuda.max_memory_allocated()
 
-    # the "ffn" policy replays as "full" does; one update launch per leaf
-    want = {**remat_launches(n), "adam8_fused": len(leaves)}
+    # the "ffn" policy replays as "full" does; one update launch for every
+    # TABLE_LEAVES leaves (1 at llama3-1b's 12)
+    updates = -(-len(leaves) // optim8bit.TABLE_LEAVES)
+    want = {**remat_launches(n), "adam8_fused": updates}
     check(all(p == want for p in per_step),
           f"adam8 train-step launches {per_step}, expected {want} per step")
     check(all(math.isfinite(v) for v in losses), f"adam8 losses {losses}")
@@ -952,8 +1042,8 @@ def phase_train_adam8(name: str) -> dict:
         nonlocal params, opt_state
         params, opt_state, _ = step(params, opt_state, tokens)
 
-    prof = profile_steps(run, 1)
-    adam = {"launches": len(leaves),
+    prof = profile_steps(run, 1, follow="adam8")
+    adam = {"launches": updates,
             "device_ms": prof["ms_per_step_by_group"].get("adam8_fused"),
             "bound_ms": sum(adam8_bytes(p) for p in leaves) / bw * 1e3,
             "bound_by": "bytes"}
@@ -965,9 +1055,88 @@ def phase_train_adam8(name: str) -> dict:
           "device_idle_share_unprofiled": None if dev_ms is None
           else 1 - dev_ms / (med * 1e3),
           "adam8_fused_per_step": adam})
-    del params, opt_state, step, init_all, leaves
+    del params, opt_state, step, leaves
     torch.cuda.empty_cache()
     return {"launches_per_step": per_step[-1], "adam8_per_step": adam}
+
+
+def adam8_leaf_times(name: str) -> dict:
+    """The 8-bit AdamW update at the llama3-1b leaves through its entry
+    point, ``AdamW8bit.apply``: each leaf as a one-leaf tree and all 12 as
+    one tree, and ``p.add_`` of a same-shaped bf16 tensor on its own (the
+    pass that applies an update not written into p); device ms by
+    CUDA-graph replay beside each leaf's bound; and the embedding leaf
+    with a gradient on one batch's rows only, as in the train step.  Uses
+    only ``adamw8bit``, ``init`` and ``apply``, so it times any tree of the
+    port."""
+    bw, _, f32_peak = peaks(name)
+    cfg = LlamaConfig.llama3_1b()
+    gen = torch.Generator("cuda").manual_seed(SEED + 13)
+    params = init_params(cfg, gen, "cuda")
+    leaves = list(training.tree_leaves(params))
+    grads = [adam8_grad(p.shape, "random", gen) for p in leaves]
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    state = opt.init(params)
+    opt.apply(params, grads, state)             # moments non-zero
+    rows = []
+    for leaf, p, g, m, v in zip(_leaf_names(params), leaves, grads,
+                                training.tree_leaves(state["m"]),
+                                training.tree_leaves(state["v"])):
+        one = {"count": state["count"], "m": {"p": m}, "v": {"p": v}}
+        spare = p.clone()
+        rows.append({
+            "leaf": leaf, "shape": list(p.shape),
+            **_bound(adam8_bytes(p), ADAM8_OPS * p.numel(), bw, f32_peak),
+            "apply_ms": time_ms(lambda: opt.apply({"p": p}, [g], one)),
+            "add_ms": time_ms(lambda: spare.add_(g)),
+        })
+        del spare
+    _kernels.reset_launches()
+    opt.apply(params, grads, state)
+    launches = _kernels.LAUNCHES["adam8_fused"]
+    whole = time_ms(lambda: opt.apply(params, grads, state))
+    # the embedding as the train step sees it: a gradient only on the rows
+    # of one batch's tokens, so the other rows' moments stay exactly zero
+    p = leaves[0]
+    g = torch.zeros_like(p)
+    ids = torch.randint(0, p.shape[0], (A8_BATCH * A8_SEQ,), device="cuda",
+                        generator=gen)
+    g[ids] = grads[0][ids]
+    one = opt.init({"p": p})
+    opt.apply({"p": p}, [g], one)
+    batch_rows = {"rows_with_gradient": int(ids.unique().numel()),
+                  "apply_ms": time_ms(lambda: opt.apply({"p": p}, [g], one))}
+    del params, leaves, grads, state, p, g, one
+    torch.cuda.empty_cache()
+    return {"leaves": rows,
+            "sum_apply_ms": sum(r["apply_ms"] for r in rows),
+            "sum_add_ms": sum(r["add_ms"] for r in rows),
+            "bound_ms": sum(r["bound_ms"] for r in rows),
+            "whole_tree_apply_ms": whole, "whole_tree_launches": launches,
+            "embed_batch_rows": batch_rows}
+
+
+def phase_adam8_leaves(name: str) -> None:
+    """:func:`adam8_leaf_times`, then the adam8 cell's train step,
+    profiled: every update launch in it and the kernel that ran after it."""
+    emit({"phase": "adam8_leaves", **adam8_leaf_times(name)})
+    _, step, params, opt_state, tokens = adam8_cell()
+    params, opt_state, _ = step(params, opt_state, tokens)    # warm-up
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    prof = profile_steps(run, 1, follow="adam8")
+    events = prof["launches_of_adam8"]
+    emit({"phase": "adam8_in_step", "launches": events,
+          "sum_ms": sum(e["ms"] for e in events),
+          "sum_next_add_ms": sum(e["next_ms"] for e in events
+                                 if e["next"] and "add" in e["next"]),
+          "ms_per_step_by_group": prof["ms_per_step_by_group"],
+          "device_ms_per_step": prof["device_ms_per_step"]})
+    del params, opt_state, step
+    torch.cuda.empty_cache()
 
 
 def phase_checkpoint():
@@ -1256,42 +1425,67 @@ def phase_table(name: str, launches: dict, train_launches: dict,
     })
     del inputs, q, k, v, do, lse, delta, qt, kt, vt, dot, bp_dq, bp_dkv
 
-    # -- 8-bit AdamW at the largest leaf (embed and lm_head), moments
-    # non-zero from one step; each timed call steps the state in place
+    # -- 8-bit AdamW: the largest leaf (embed and lm_head) as a one-leaf
+    # table, moments non-zero from one step, each timed call stepping the
+    # state in place; then the 12 llama3-1b leaves, each alone and all in
+    # one launch; and the launches of the adam8 cell's profiled step
+    leaves = adam8_leaf_times(name)
     opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
     shape = (cfg.vocab_size, cfg.hidden)
     p = (torch.randn(shape, device="cuda", generator=gen) * 0.1).bfloat16()
     g = adam8_grad(shape, "random", gen)
     _, m, v = _a8_leaf(p)
-    optim8bit.adam8_fused(p, g, m, v, opt.consts(1))
+    optim8bit.adam8_fused([(p, g, m, v)], opt.consts(1))
+    p2 = p.clone()
     m2, v2 = (optim8bit.QTensor(t.q.clone(), t.scale.clone()) for t in (m, v))
     kc = opt.consts(2)
-    upd = optim8bit.adam8_fused(p, g, m, v, kc)
-    ref = optim8bit._leaf_update_plain(p, g, m2, v2, kc)
-    check(torch.equal(bits(upd), bits(ref)) and torch.equal(m.q, m2.q),
+    optim8bit.adam8_fused([(p, g, m, v)], kc)
+    optim8bit.adam8_plain([(p2, g, m2, v2)], kc)
+    check(all(torch.equal(bits(a), bits(b)) for a, b in
+              zip(_a8_out((p, m, v)), _a8_out((p2, m2, v2)))),
           "adam8_fused disagrees with its plain version at the largest leaf")
+    in_step = adam8["adam8_per_step"]
     rows.append({
         "name": "adam8_fused", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/adam8_fused.cu",
         "replaces": "tpu_network_operator/models/optim8bit.py:167",
+        "design": DESIGN["adam8_fused"],
         "launches": adam8["launches_per_step"]["adam8_fused"],
-        "shape": list(shape), "max_abs_err": max_err(upd, ref),
-        "ms": time_ms(lambda: optim8bit.adam8_fused(p, g, m, v, kc)),
+        "shape": list(shape), "max_abs_err": max_err(p, p2),
+        "ms": time_ms(lambda: optim8bit.adam8_fused([(p, g, m, v)], kc)),
         "plain_ms": time_ms_eager(
-            lambda: optim8bit._leaf_update_plain(p, g, m2, v2, kc),
+            lambda: optim8bit.adam8_plain([(p2, g, m2, v2)], kc),
             iters=3, reps=3),
         **_bound(adam8_bytes(p), ADAM8_OPS * p.numel(), bw, f32_peak),
         "library_ms": None,
         "library": "none: no PyTorch call computes block-quantized 8-bit "
                    "AdamW",
-        "per_step": adam8["adam8_per_step"],
+        "llama3_1b_leaves": {
+            "one_launch_each_ms": leaves["sum_apply_ms"],
+            "one_launch_ms": leaves["whole_tree_apply_ms"],
+            "one_launch_launches": leaves["whole_tree_launches"],
+            "bound_ms": leaves["bound_ms"], "bound_by": "bytes",
+            "per_leaf": leaves["leaves"],
+            "add_pass_ms": leaves["sum_add_ms"]},
+        "in_step": {"device_ms": in_step["device_ms"],
+                    "launches": in_step["launches"],
+                    "bound_ms": in_step["bound_ms"], "bound_by": "bytes"},
     })
     emit({"kernels": rows})
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    args.add_argument("--adam8-leaves", action="store_true",
+                      help="only time the 8-bit AdamW update at the "
+                           "llama3-1b leaves (phase_adam8_leaves)")
+    args = args.parse_args(argv)
     name, smi = phase_device()
     phase_build()
+    if args.adam8_leaves:
+        phase_adam8_leaves(name)
+        print(smi, flush=True)
+        return 0
     phase_kernels()
     phase_kernels_bwd()
     phase_kernels_adam8()

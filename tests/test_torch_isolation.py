@@ -92,5 +92,5 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     opt = topt.adamw8bit()
     state = opt.init({"p": p})
     with pytest.raises(ValueError, match="CUDA"):
-        topt.adam8_fused(p, p, state["m"]["p"], state["v"]["p"],
+        topt.adam8_fused([(p, p.clone(), state["m"]["p"], state["v"]["p"])],
                          opt.consts(1))

@@ -529,18 +529,17 @@ def _adam8_grads(shape, dtype, gen, steps, case="random"):
 
 def _adam8_run(shape, dtype, grads, kernel: bool, seed=0):
     """Steps with carried state through the kernel or the plain version;
-    the (update, codes, scales) of every step."""
+    the (param, codes, scales) after every step."""
     gen = torch.Generator("cuda").manual_seed(seed)
     p = (torch.randn(shape, device="cuda", generator=gen) * 0.1).to(dtype)
     opt = topt.adamw8bit(3e-4, weight_decay=0.1)
     state = opt.init({"p": p})
     m, v = state["m"]["p"], state["v"]["p"]
-    fn = topt.adam8_fused if kernel else topt._leaf_update_plain
+    fn = topt.adam8_fused if kernel else topt.adam8_plain
     out = []
     for i, g in enumerate(grads, start=1):
-        upd = fn(p, g, m, v, opt.consts(i))
-        p.add_(upd)
-        out.append([t.clone() for t in (upd, p, m.q, m.scale, v.q, v.scale)])
+        fn([(p, g, m, v)], opt.consts(i))
+        out.append([t.clone() for t in (p, m.q, m.scale, v.q, v.scale)])
     return out
 
 
@@ -548,6 +547,9 @@ def _bits(t):
     if t.element_size() == 1:
         return t.view(torch.uint8)
     return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+A8_NAMES = ("param", "m codes", "m scales", "v codes", "v scales")
 
 
 @pytest.mark.parametrize("dtype", ["bf16", "f32"])
@@ -558,43 +560,43 @@ def _bits(t):
 def test_adam8_kernel_matches_plain_bit_for_bit(cuda, dtype, shape, case):
     # (3, 77), (5, 1000) and (): whole-row blocks, the two-pass loop; the
     # rest 256-blocks in registers.  Three steps with carried state: the
-    # update, the parameter, the codes and the scales are the same bits as
-    # the plain version's (both round every operation on its own), and a
-    # second run repeats them
+    # parameter (updated in place), the codes and the scales are the same
+    # bits as the plain version's (both round every operation on its
+    # own), and a second run repeats them; one launch a step
     dt = DTYPES[dtype]
     grads = _adam8_grads(shape, dt, cuda, 3, case)
     before = _kernels.LAUNCHES["adam8_fused"]
     runs = [_adam8_run(shape, dt, grads, kernel=True) for _ in range(2)]
     assert _kernels.LAUNCHES["adam8_fused"] == before + 6
     plain = _adam8_run(shape, dt, grads, kernel=False)
-    names = ("update", "param", "m codes", "m scales", "v codes", "v scales")
     for step, (k1, k2, ref) in enumerate(zip(*runs, plain), start=1):
-        for name, a, b, r in zip(names, k1, k2, ref):
+        for name, a, b, r in zip(A8_NAMES, k1, k2, ref):
             assert torch.equal(_bits(a), _bits(b)), (step, name, "repeat")
             mismatched = (_bits(a) != _bits(r)).sum().item()
             assert mismatched == 0, (step, name, mismatched)
     if case == "zero_block":
-        assert plain[-1][3].view(-1)[0].item() == 1.0     # m scale guard
-        assert plain[-1][5].view(-1)[0].item() == 1.0     # v scale guard
+        assert plain[-1][2].view(-1)[0].item() == 1.0     # m scale guard
+        assert plain[-1][4].view(-1)[0].item() == 1.0     # v scale guard
     if case == "e4m3_limit":
-        v_codes = plain[0][4].view(-1, 256)[:, 0].float()
+        v_codes = plain[0][3].view(-1, 256)[:, 0].float()
         assert torch.all(v_codes == 448.0)
 
 
 def test_adam8_kernel_updates_moments_in_place(cuda):
-    # the codes and scales are written where they lie (the Pallas kernel's
-    # input_output_aliases): no new moment buffer, the same storage
-    # changed; the update is a new tensor in p's dtype
+    # p, the codes and the scales are written where they lie (the Pallas
+    # kernel's input_output_aliases, then optax.apply_updates): no new
+    # buffer, the same storage changed, nothing returned
     p = torch.randn(32, 512, device="cuda", generator=cuda).bfloat16()
     g = torch.randn(32, 512, device="cuda", generator=cuda).bfloat16()
     opt = topt.adamw8bit()
     state = opt.init({"p": p})
     m, v = state["m"]["p"], state["v"]["p"]
-    ptrs = [t.data_ptr() for t in (m.q, m.scale, v.q, v.scale)]
-    upd = topt.adam8_fused(p, g, m, v, opt.consts(1))
+    p0 = p.clone()
+    ptrs = [t.data_ptr() for t in (p, m.q, m.scale, v.q, v.scale)]
+    assert topt.adam8_fused([(p, g, m, v)], opt.consts(1)) is None
     torch.cuda.synchronize()
-    assert [t.data_ptr() for t in (m.q, m.scale, v.q, v.scale)] == ptrs
-    assert upd.dtype == p.dtype and upd.shape == p.shape
+    assert [t.data_ptr() for t in (p, m.q, m.scale, v.q, v.scale)] == ptrs
+    assert not torch.equal(p, p0)
     assert m.q.abs().max().item() == 127 and (m.scale != 1).all()
     assert v.q.float().max().item() == 448.0
     params, state = opt.apply({"p": p}, [g], state)
@@ -611,10 +613,9 @@ def test_adam8_kernel_unaligned_leaf_takes_the_row_loop(cuda):
     g = torch.randn(8, 256, device="cuda", generator=cuda).bfloat16()
     opt = topt.adamw8bit()
     sk, sr = opt.init({"p": p_k}), opt.init({"p": p_r})
-    uk = topt.adam8_fused(p_k, g, sk["m"]["p"], sk["v"]["p"], opt.consts(1))
-    ur = topt._leaf_update_plain(p_r, g, sr["m"]["p"], sr["v"]["p"],
-                                 opt.consts(1))
-    assert torch.equal(_bits(uk), _bits(ur))
+    topt.adam8_fused([(p_k, g, sk["m"]["p"], sk["v"]["p"])], opt.consts(1))
+    topt.adam8_plain([(p_r, g, sr["m"]["p"], sr["v"]["p"])], opt.consts(1))
+    assert torch.equal(_bits(p_k), _bits(p_r))
     assert torch.equal(_bits(sk["v"]["p"].q), _bits(sr["v"]["p"].q))
 
 
@@ -623,25 +624,129 @@ def test_adam8_kernel_refuses(cuda):
     opt = topt.adamw8bit()
     st = opt.init({"p": p})
     m, v, k = st["m"]["p"], st["v"]["p"], opt.consts(1)
+    g = p.clone()
     with pytest.raises(TypeError):
-        topt.adam8_fused(p.half(), p.half(), m, v, k)
+        topt.adam8_fused([(p.half(), g.half(), m, v)], k)
     with pytest.raises(ValueError, match="g must match"):
-        topt.adam8_fused(p, p.float(), m, v, k)
+        topt.adam8_fused([(p, g.float(), m, v)], k)
     with pytest.raises(ValueError, match="codes"):
-        topt.adam8_fused(p, p, v, m, k)
+        topt.adam8_fused([(p, g, v, m)], k)
     with pytest.raises(ValueError, match="scales"):
-        topt.adam8_fused(p, p, topt.QTensor(m.q, m.scale[:, :0]), v, k)
+        topt.adam8_fused([(p, g, topt.QTensor(m.q, m.scale[:, :0]), v)], k)
     with pytest.raises(ValueError, match="contiguous"):
         pt = torch.randn(256, 4, device="cuda").bfloat16().t()
-        topt.adam8_fused(pt, pt, m, v, k)
+        topt.adam8_fused([(pt, pt.contiguous(), m, v)], k)
+
+
+def test_adam8_kernel_refuses_aliasing_leaves(cuda):
+    # the kernel rewrites each leaf's tensors as its own: leaves that share
+    # memory are refused before any launch
+    opt = topt.adamw8bit()
+    buf = torch.randn(2, 512, device="cuda").bfloat16()
+    st = opt.init({"a": buf[0], "b": buf[1]})
+    a = (buf[0], buf[0].clone(), st["m"]["a"], st["v"]["a"])
+    b = (buf[1], buf[1].clone(), st["m"]["b"], st["v"]["b"])
+    before = _kernels.LAUNCHES["adam8_fused"]
+    topt.adam8_fused([a, b], opt.consts(1))            # touching, not shared
+    assert _kernels.LAUNCHES["adam8_fused"] == before + 1
+    for leaves in ([a, (buf.view(-1)[256:768], *b[1:])],   # p's overlap
+                   [(a[0], a[0], a[2], a[3])],             # g is p
+                   [a, (b[0], b[1], a[2], b[3])]):         # a shared m
+        with pytest.raises(ValueError, match="share no memory"):
+            topt.adam8_fused(leaves, opt.consts(2))
+    assert _kernels.LAUNCHES["adam8_fused"] == before + 1
+
+
+def _mixed_tree(gen):
+    """Leaves of every kind in one tree: bf16 and f32 256-blocks, whole-row
+    blocks, a 0-d leaf, a bf16 leaf at a 2-byte offset (the row loop), and
+    enough small leaves that one call takes two launches."""
+    shapes = [((64, 512), torch.bfloat16), ((4, 1024, 256), torch.float32),
+              ((3, 77), torch.bfloat16), ((5, 1000), torch.float32),
+              ((), torch.float32), ((2048,), torch.bfloat16)]
+    shapes += [((256 * (1 + i % 3),), torch.float32 if i % 2 else
+                torch.bfloat16) for i in range(33)]
+    params = {f"p{i}": (torch.randn(s, device="cuda", generator=gen) * 0.1
+                        ).to(dt) for i, (s, dt) in enumerate(shapes)}
+    buf = torch.empty(8 * 256 + 1, device="cuda", dtype=torch.bfloat16)
+    params["odd"] = buf[1:].view(8, 256)
+    params["odd"].copy_(torch.randn(8, 256, device="cuda", generator=gen))
+    return params
+
+
+def test_adam8_kernel_mixed_tree_in_one_call(cuda):
+    # 40 leaves of every kind through one adam8_fused call a step: two
+    # launches (32 leaves, then 8), three steps with carried state, the
+    # same bits as the plain version and on a repeat
+    opt = topt.adamw8bit(3e-4, weight_decay=0.1)
+    start = _mixed_tree(cuda)
+    assert len(start) == 40 and start["odd"].data_ptr() % 16
+    grads = [[(torch.randn(p.shape, device="cuda", generator=cuda) * 1e-2
+               ).to(p.dtype) for p in start.values()] for _ in range(3)]
+
+    def run(kernel):
+        params = {k: p.clone() for k, p in start.items()}
+        buf = torch.empty(8 * 256 + 1, device="cuda", dtype=torch.bfloat16)
+        params["odd"] = buf[1:].view(8, 256)
+        params["odd"].copy_(start["odd"])
+        state = opt.init(params)
+        out = []
+        for i, g in enumerate(grads, start=1):
+            leaves = list(zip(params.values(), g, state["m"].values(),
+                              state["v"].values()))
+            n = _kernels.LAUNCHES["adam8_fused"]
+            (topt.adam8_fused if kernel else topt.adam8_plain)(
+                leaves, opt.consts(i))
+            if kernel:
+                assert _kernels.LAUNCHES["adam8_fused"] == n + 2
+            out.append([t.clone() for p, _, m, v in leaves
+                        for t in (p, m.q, m.scale, v.q, v.scale)])
+        return out
+
+    first, again, plain = run(True), run(True), run(False)
+    for step, (k1, k2, ref) in enumerate(zip(first, again, plain), start=1):
+        for i, (a, b, r) in enumerate(zip(k1, k2, ref)):
+            what = (step, list(start)[i // 5], A8_NAMES[i % 5])
+            assert torch.equal(_bits(a), _bits(b)), (*what, "repeat")
+            assert torch.equal(_bits(a), _bits(r)), what
+
+
+def test_adam8_step_captured_in_a_cuda_graph(cuda):
+    # one optimizer step captured in a CUDA graph (the leaf table is a
+    # kernel parameter, captured by value) and replayed gives the bits of
+    # the same step run eagerly from the same state
+    opt = topt.adamw8bit(3e-4, weight_decay=0.1)
+    shapes = [(64, 512), (3, 77), (2048,)]
+    params = {f"p{i}": (torch.randn(s, device="cuda", generator=cuda) * 0.1
+                        ).bfloat16() for i, s in enumerate(shapes)}
+    grads = [(torch.randn(p.shape, device="cuda", generator=cuda) * 1e-2
+              ).bfloat16() for p in params.values()]
+    warm = {k: p.clone() for k, p in params.items()}
+    opt.apply(warm, grads, opt.init(warm))   # builds, sizes the grid
+    eager = {k: p.clone() for k, p in params.items()}
+    eager_state = opt.init(eager)
+    opt.apply(eager, grads, eager_state)
+    state = opt.init(params)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        opt.apply(params, grads, state)
+    graph.replay()
+    torch.cuda.synchronize()
+    for k in params:
+        assert torch.equal(_bits(params[k]), _bits(eager[k])), k
+        for side_name in ("m", "v"):
+            got, want = state[side_name][k], eager_state[side_name][k]
+            assert torch.equal(_bits(got.q), _bits(want.q)), (k, side_name)
+            assert torch.equal(got.scale, want.scale), (k, side_name)
 
 
 def test_adam8_train_step_on_card_matches_cpu(cuda):
     # the adam8bit step on the card (flash, RMSNorm and 8-bit AdamW
     # kernels) against the CPU (plain versions), three steps from the same
-    # weights: one adam8_fused launch per leaf per step; losses within
-    # bf16 rounding order, and the weights within 3 steps * 2 * lr plus a
-    # bf16 ulp (gradients that differ in their last bits may move a code)
+    # weights: one adam8_fused launch per step for all 12 leaves; losses
+    # within bf16 rounding order, and the weights within 3 steps * 2 * lr
+    # plus a bf16 ulp (gradients that differ in their last bits may move a
+    # code)
     cfg = dataclasses.replace(
         tllama.LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
                            kv_heads=2, ffn=512, max_seq=256),
@@ -660,8 +765,8 @@ def test_adam8_train_step_on_card_matches_cpu(cuda):
         for _ in range(3):
             p, state, loss = step(p, state, tokens.to(dev))
             losses.append(loss.item())
-        if dev == "cuda":
-            assert _kernels.LAUNCHES["adam8_fused"] == 3 * 12
+        if dev == "cuda":                 # one launch for the 12 leaves
+            assert _kernels.LAUNCHES["adam8_fused"] == 3
         out[dev] = (losses, tllama.params_to(p, "cpu"))
     for lc, lp in zip(out["cuda"][0], out["cpu"][0]):
         assert abs(lc - lp) < 1e-2 * abs(lp)

@@ -164,3 +164,40 @@ def test_attention_routes_by_gate(monkeypatch):
     assert calls == [1]
     tllama.attention(cfg, q[:, :96], k[:, :96], k[:, :96])   # 96: no gate
     assert calls == [1]
+
+
+@pytest.mark.parametrize("head_dim", [64, 128, 192, 256])
+def test_flash_route_takes_only_kernel_head_dims(head_dim):
+    # the reference's gate admits every multiple of 64; the CUDA kernels
+    # are built for D 64 and 128, so the port routes the others to plain
+    # attention, on the CPU as on the card
+    from tpu_network_operator_torch.ops import flash_attention as tfa
+
+    assert tfa.supports(128, 128, head_dim)
+    assert tfa.use_flash(128, 128, head_dim) == (head_dim in (64, 128))
+
+
+def test_head_dim_192_takes_plain_attention(monkeypatch):
+    # head_dim 192 at seq 128: the shape gate passes, the kernels have no
+    # D 192, so the model takes plain causal attention (flash would raise
+    # here) and matches the JAX model, which takes plain attention off the
+    # TPU; f32 summation order only, as the plain-route test
+    from tpu_network_operator_torch.ops import flash_attention as tfa
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("head_dim 192 reached flash attention")
+
+    monkeypatch.setattr(tfa, "flash_attention", refuse)
+    jcfg = jllama.LlamaConfig(
+        vocab_size=256, hidden=384, layers=2, heads=2, kv_heads=1, ffn=512,
+        max_seq=256, remat=False, dtype=jnp.float32)
+    assert jcfg.head_dim == 192
+    tree = jax_params_np(jcfg, 6)
+    tokens = np.random.default_rng(7).integers(0, 256, (2, 128),
+                                               dtype=np.int32)
+    ref = np.asarray(jllama.forward(jax.tree.map(jnp.asarray, tree),
+                                    jnp.asarray(tokens), jcfg))
+    out = tllama.forward(tllama.params_from_jax(tree, "cpu"),
+                         torch.from_numpy(tokens).long(), torch_cfg(jcfg))
+    assert out.dtype == torch.float32 and out.shape == (2, 128, 256)
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4)

@@ -25,7 +25,7 @@ import torch
 from .. import resolve_device
 from ..ops.attention import causal_attention
 from ..ops.flash_attention import flash_attention
-from ..ops.flash_attention import supports as flash_supports
+from ..ops.flash_attention import use_flash
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_at, rope_angles
 from .llama import LlamaConfig, Params, unbind_layers
@@ -33,11 +33,12 @@ from .llama import LlamaConfig, Params, unbind_layers
 
 def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
     """Flash for the prefill pass: only when the query block IS the whole
-    filled prefix (pos 0, s == view length) and the kernel's shape gate
-    passes.  One device, so the reference's single-device rule holds."""
+    filled prefix (pos 0, s == view length) and :func:`use_flash` routes
+    the shape to the kernel.  One device, so the reference's single-device
+    rule holds."""
     if not (isinstance(pos, int) and pos == 0 and s == attn_len):
         return False
-    return flash_supports(s, s, cfg.head_dim)
+    return use_flash(s, s, cfg.head_dim)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,

@@ -205,9 +205,10 @@ def unbind_layers(params: Params) -> List[Dict[str, torch.Tensor]]:
 
 
 def attention(cfg: LlamaConfig, q, k, v) -> torch.Tensor:
-    """Flash (kernel on CUDA, its plain version on CPU) when the shape
-    gate passes, plain causal attention otherwise."""
-    if fa.supports(q.shape[1], k.shape[1], cfg.head_dim):
+    """Flash (kernel on CUDA, its plain version on CPU) where
+    :func:`..ops.flash_attention.use_flash` routes the shape to it, plain
+    causal attention otherwise."""
+    if fa.use_flash(q.shape[1], k.shape[1], cfg.head_dim):
         return fa.flash_attention(q, k, v)
     return causal_attention(q, k, v)
 

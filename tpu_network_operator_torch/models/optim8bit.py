@@ -15,13 +15,17 @@ leaf by leaf (:func:`adam8_state_from_jax`):
 * the Adam math runs in f32 as ``optax.adamw`` does, with the ratio
   clipped to ±:data:`RATIO_CLIP`.
 
-The update of one leaf is one pass: dequantize, step the moments, emit
-the parameter update in the parameter's dtype, requantize the moments in
-place.  :func:`_leaf_update_plain` is that pass in plain tensor code (the
-reference's jnp path, operation for operation); :func:`adam8_fused` is the
-hand-written CUDA kernel ``ops/csrc/adam8_fused.cu``.  :class:`AdamW8bit`
-takes the plain version for a CPU leaf and the kernel for a CUDA leaf,
-every leaf, whatever its shape: there is no fallback and no switch.
+The update of one leaf is one pass: dequantize, step the moments, form
+the parameter update in the parameter's dtype and add it to the parameter
+(``optax.apply_updates``), requantize the moments.  The parameters and the
+moments are updated in place.  :func:`_leaf_update_plain` is that pass in
+plain tensor code up to the update (the reference's jnp path, operation
+for operation) and :func:`adam8_plain` adds it, leaf by leaf;
+:func:`adam8_fused` is the hand-written CUDA kernel
+``ops/csrc/adam8_fused.cu``, one launch for up to :data:`TABLE_LEAVES`
+leaves, p written in place.  :class:`AdamW8bit` sends every CPU leaf
+through the plain version and every CUDA leaf through one kernel call,
+whatever its shape: there is no fallback and no switch.
 
 Both versions divide by 127 and 448 (and by the bias corrections), as the
 reference's source text and its jnp path do.  The reference's Pallas
@@ -32,7 +36,8 @@ test_torch_optim8bit.py`` pins it).
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, NamedTuple, Tuple
+import ctypes
+from typing import Any, Dict, List, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +51,7 @@ RATIO_CLIP = 10.0
 _F8_MAX = 448.0   # float8_e4m3fn max finite
 F8 = torch.float8_e4m3fn
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+TABLE_LEAVES = 32   # leaves one kernel launch takes (the kernel's kMaxLeaves)
 
 
 class QTensor(NamedTuple):
@@ -194,10 +200,10 @@ def _moments_plain(g, m: QTensor, v: QTensor, k: Consts):
 
 def _leaf_update_plain(p: torch.Tensor, g: torch.Tensor, m: QTensor,
                        v: QTensor, k: Consts) -> torch.Tensor:
-    """The plain version of :func:`adam8_fused`: the reference's jnp path
-    in its order of operations, every op in f32 on its own (no fused
+    """One leaf's update as the reference's jnp path computes it, in its
+    order of operations, every op in f32 on its own (no fused
     multiply-add).  Requantizes ``m`` and ``v`` in place and returns the
-    update in p's dtype and shape."""
+    update in p's dtype and shape (:func:`adam8_plain` adds it to p)."""
     mf, vf = _moments_plain(g, m, v, k)
     den = _sqrt(_div(vf, k.c2)) + k.eps
     ratio = torch.clamp(_div(mf, k.c1) / den, -RATIO_CLIP, RATIO_CLIP)
@@ -208,8 +214,8 @@ def _leaf_update_plain(p: torch.Tensor, g: torch.Tensor, m: QTensor,
     return upd.to(p.dtype).reshape(p.shape)
 
 
-def _check_kernel_inputs(p, g, m: QTensor, v: QTensor) -> int:
-    """Validate one leaf for the kernel; returns its block count."""
+def _check_kernel_inputs(p, g, m: QTensor, v: QTensor) -> None:
+    """Validate one leaf for the kernel."""
     if p.device.type != "cuda":
         raise ValueError("the 8-bit AdamW kernel takes CUDA tensors")
     if p.dtype not in _DTYPE_CODES:
@@ -236,27 +242,91 @@ def _check_kernel_inputs(p, g, m: QTensor, v: QTensor) -> int:
                          f"and {tuple(v.scale.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the 8-bit AdamW kernel takes contiguous tensors")
-    return m.scale.numel()
 
 
-def adam8_fused(p: torch.Tensor, g: torch.Tensor, m: QTensor, v: QTensor,
-                k: Consts) -> torch.Tensor:
-    """The kernel (``csrc/adam8_fused.cu``): one launch for one leaf.
-    Requantizes ``m`` and ``v`` in place and returns the update in p's
-    dtype and shape (the caller applies it)."""
-    nb = _check_kernel_inputs(p, g, m, v)
-    upd = torch.empty_like(p)
-    n = p.numel()
-    if n == 0:
-        return upd
-    err = _kernels.lib().tpunet_adam8_fused(
-        p.data_ptr(), g.data_ptr(), m.q.data_ptr(), m.scale.data_ptr(),
-        v.q.data_ptr(), v.scale.data_ptr(), upd.data_ptr(), nb, n // nb,
-        *k, _DTYPE_CODES[p.dtype], _kernels.stream_handle(p.device),
-    )
-    _kernels.check(err, "adam8_fused")
-    _kernels.count_launch("adam8_fused")
-    return upd
+Leaf = Tuple[torch.Tensor, torch.Tensor, QTensor, QTensor]   # (p, g, m, v)
+
+
+def adam8_plain(leaves: Sequence[Leaf], k: Consts) -> None:
+    """The plain version of :func:`adam8_fused`: each leaf's update
+    (:func:`_leaf_update_plain`) added to p in p's dtype, as
+    ``optax.apply_updates`` adds it.  Updates p, m and v in place."""
+    for p, g, m, v in leaves:
+        p.add_(_leaf_update_plain(p, g, m, v, k))
+
+
+class LeafEntry(ctypes.Structure):
+    """One leaf of a launch's table, laid out as ``csrc/adam8_fused.cu``'s
+    ``Leaf`` (80 bytes)."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("mq", ctypes.c_void_p), ("ms", ctypes.c_void_p),
+                ("vq", ctypes.c_void_p), ("vs", ctypes.c_void_p),
+                ("start", ctypes.c_longlong),  # its first block in the launch
+                ("end", ctypes.c_longlong),    # one past its last block
+                ("block", ctypes.c_int),       # values a block
+                ("dtype", ctypes.c_int),       # _DTYPE_CODES
+                ("vec", ctypes.c_int),         # 1: the register path
+                ("pad", ctypes.c_int)]
+
+
+def leaf_tables(leaves: Sequence[Leaf]) -> List[List[LeafEntry]]:
+    """The kernel's launch tables for ``leaves``: every leaf that holds
+    values, in order, at most :data:`TABLE_LEAVES` to a table, each
+    table's blocks numbered from 0.  A leaf takes the register path where
+    its blocks are 256 values long, p and g 16-byte aligned and the codes
+    8-byte aligned, else the row loop."""
+    tables: List[List[LeafEntry]] = []
+    table: List[LeafEntry] = []
+    start = 0
+    for p, g, m, v in leaves:
+        if p.numel() == 0:
+            continue
+        if len(table) == TABLE_LEAVES:
+            tables.append(table)
+            table, start = [], 0
+        nb = m.scale.numel()
+        block = p.numel() // nb
+        vec = (block == 256 and p.data_ptr() % 16 == 0
+               and g.data_ptr() % 16 == 0 and m.q.data_ptr() % 8 == 0
+               and v.q.data_ptr() % 8 == 0)
+        table.append(LeafEntry(
+            p.data_ptr(), g.data_ptr(), m.q.data_ptr(), m.scale.data_ptr(),
+            v.q.data_ptr(), v.scale.data_ptr(), start, start + nb, block,
+            _DTYPE_CODES[p.dtype], int(vec)))
+        start += nb
+    if table:
+        tables.append(table)
+    return tables
+
+
+def _check_disjoint(leaves: Sequence[Leaf]) -> None:
+    """Refuse leaves whose tensors share memory: the kernel reads and
+    rewrites each tensor of each leaf as its own."""
+    spans = sorted(
+        (t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+        for p, g, m, v in leaves for t in (p, g, *m, *v) if t.numel())
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("the 8-bit AdamW kernel takes leaves whose "
+                             "tensors share no memory")
+
+
+def adam8_fused(leaves: Sequence[Leaf], k: Consts) -> None:
+    """The kernel (``csrc/adam8_fused.cu``): steps every leaf's p, m and v
+    in place, one launch for each :data:`TABLE_LEAVES` leaves."""
+    leaves = list(leaves)
+    for leaf in leaves:
+        _check_kernel_inputs(*leaf)
+    if len({leaf[0].device for leaf in leaves}) > 1:
+        raise ValueError("the 8-bit AdamW kernel takes leaves on one device")
+    _check_disjoint(leaves)
+    for table in leaf_tables(leaves):
+        err = _kernels.lib().tpunet_adam8_fused(
+            (LeafEntry * len(table))(*table), len(table), *k,
+            _kernels.stream_handle(leaves[0][0].device))
+        _kernels.check(err, "adam8_fused")
+        _kernels.count_launch("adam8_fused")
 
 
 # -- the optimizer ---------------------------------------------------------------
@@ -300,14 +370,13 @@ class AdamW8bit:
             raise ValueError("adamw8bit requires params (weight decay)")
         count = state["count"] + 1
         k = self.consts(count)
-        for p, g, m, v in zip(tree_leaves(params), grads,
-                              tree_leaves(state["m"]),
-                              tree_leaves(state["v"])):
-            if p.device.type == "cuda":
-                upd = adam8_fused(p, g, m, v, k)
-            else:
-                upd = _leaf_update_plain(p, g, m, v, k)
-            p.add_(upd)          # p + u in p's dtype, as optax.apply_updates
+        leaves = list(zip(tree_leaves(params), grads,
+                          tree_leaves(state["m"]), tree_leaves(state["v"])))
+        cuda = [leaf for leaf in leaves if leaf[0].device.type == "cuda"]
+        if cuda:
+            adam8_fused(cuda, k)
+        adam8_plain([leaf for leaf in leaves
+                     if leaf[0].device.type != "cuda"], k)
         state["count"] = count
         return params, state
 

@@ -64,7 +64,7 @@ _SIGNATURES = {
     + [_F, _I, _I, _P],
     "tpunet_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18
     + [_F, _I, _I, _P],
-    "tpunet_adam8_fused": [_P] * 7 + [_LL, _I] + [_F] * 9 + [_I, _P],
+    "tpunet_adam8_fused": [_P, _I] + [_F] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -471,3 +471,13 @@ def supports(seq_q: int, seq_k: int, head_dim: int,
         and bk % 128 == 0
         and head_dim % 64 == 0
     )
+
+
+def use_flash(seq_q: int, seq_k: int, head_dim: int) -> bool:
+    """The model's route to flash attention: the reference's shape gate
+    (:func:`supports`) and a head dim the kernels are built for.  The CUDA
+    kernels are compiled for D 64 and 128 only (:data:`KERNEL_HEAD_DIMS`),
+    where the gate admits any multiple of 64, so D 192 or 256 takes plain
+    causal attention, as the reference does wherever its gate refuses.  The
+    route is the same on the CPU and the card."""
+    return supports(seq_q, seq_k, head_dim) and head_dim in KERNEL_HEAD_DIMS
