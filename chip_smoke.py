@@ -35,20 +35,39 @@ Phases, each printing JSON lines; any failure exits non-zero:
    from a token file through ``device_batches``: 2 steps, a save, 1 more
    step; the save restored in place into a fresh ``init_all`` state must be
    the same bits, and the resumed step must give the same loss;
-10. the kernel table: each kernel's time at its path's shapes beside its
-    bound, its plain version's time and one PyTorch library call's.
+10. train_moe: ``MoEConfig.small`` (Mixtral-family, 8 experts, top-2,
+    head_dim 128) at full width and depth, batch 4 x 2048, the reference's
+    defaults ("dots" remat, full logits), AdamW(3e-4, wd 0.1): a warm-up
+    step, timed steps with kernels 1 to 5's launches per step read and the
+    loss required to fall, one profiled step with the GEMMs split into
+    dispatch/combine einsums, expert GEMMs and router; then 2 steps of
+    ``adamw8bit`` on the same model (kernel 6 over its 13 leaves);
+11. train_moe_card_vs_cpu: one loss and gradient at ``MoEConfig.small``
+    widths with 2 layers, batch 1 x 256, on the card and on the CPU, with
+    the share of routing choices the two make alike;
+12. the kernel table: each kernel's time at its path's shapes beside its
+    bound, its plain version's time and one PyTorch library call's, the
+    flash kernels also at the MoE cell's head_dim 128.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
-steps with carried state, bit for bit, each leaf shape alone and the 12
-``llama3-1b`` leaves with three edge-case leaves in one launch; the table
-gives its time at the largest leaf, over the 12 leaves one launch each and
-in one launch, and inside the profiled adam8 step.
+steps with carried state, bit for bit, each leaf shape alone, the 12
+``llama3-1b`` leaves with three edge-case leaves in one launch, and the MoE
+leaf shapes (an f32 router, a bf16 expert slice); the table gives its time
+at the largest leaf, over the 12 leaves one launch each and in one launch,
+and inside the profiled adam8 step.  Phase 8 also counts the matmuls that
+the "ffn" policy reruns in the layers' backward (3 a layer).
 
     python3 chip_smoke.py --adam8-leaves
 
 times only the 8-bit AdamW update at the ``llama3-1b`` leaves through
 ``AdamW8bit.apply`` (each leaf alone, all 12 at once, a separate
-``p.add_`` pass) and profiles the adam8 step's update launches.
+``p.add_`` pass) and profiles the adam8 step's update launches;
+
+    python3 chip_smoke.py --remat-ffn
+
+profiles only the adam8 step (3 steps) and counts its layers' backward
+matmuls.  Both modes use only entry points an older tree has, so they
+compare two trees in one call.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -72,6 +91,7 @@ from pathlib import Path
 import numpy as np
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 
@@ -89,6 +109,7 @@ from tpu_network_operator_torch.models.checkpoint import (  # noqa: E402
 )
 from tpu_network_operator_torch.models.llama import (  # noqa: E402
     LlamaConfig,
+    forward_hidden,
     init_params,
     loss_fn,
     make_train_step,
@@ -106,6 +127,10 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_CHUNK, TRAIN_STEPS = 6, 2048, 1024, 3
 A8_BATCH, A8_SEQ, A8_CHUNK, A8_LR, A8_WD = 4, 2048, 512, 3e-4, 0.1
 # the checkpoint phase: llama3-1b widths, 2 layers, batches of 2 x 1024
 CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 1024
+# the MoE cell: MoEConfig.small at full width and depth with the
+# reference's defaults ("dots" remat, full logits), AdamW; then a short
+# adamw8bit run of the same model
+MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_A8_STEPS = 4, 2048, 4, 2
 SCRATCH = Path(__file__).resolve().parent / ".chip_smoke_tmp"
 
 # the designs of the kernels redesigned for Hopper
@@ -561,18 +586,44 @@ def launch_events(prof, key: str) -> list:
             for e, nxt in zip(evs, [*evs[1:], None]) if key in e.name]
 
 
-def profile_steps(run, steps: int, follow: str = "") -> dict:
+def _device_us(event) -> float:
+    """The device time of the kernels a CPU event (an op or a
+    ``record_function`` range) launched, its children's included."""
+    us = getattr(event, "device_time_total", None)
+    return event.cuda_time_total if us is None else us
+
+
+def gemm_groups(prof, op_group, steps: int) -> dict:
+    """Device ms per step of the GEMM calls (``aten::mm`` / ``aten::bmm``,
+    forward and backward), summed per the name ``op_group(input_shapes)``
+    gives each: the kernels each such call launched."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU \
+                or e.name not in ("aten::mm", "aten::bmm"):
+            continue
+        group = op_group(e.input_shapes)
+        out[group] = out.get(group, 0.0) + _device_us(e) / steps / 1e3
+    return dict(sorted(out.items()))
+
+
+def profile_steps(run, steps: int, follow: str = "",
+                  op_group=None, ranges=()) -> dict:
     """torch.profiler over ``steps`` calls of ``run()``: wall time per
     step, the device's busy share (sum of kernel times over wall time; one
     stream, so kernels do not overlap) and the kernels that take the most
     device time; with ``follow``, every launch of the kernels whose name
-    holds it (:func:`launch_events`).  The profiler's own host cost is
-    inside the wall time."""
+    holds it (:func:`launch_events`); with ``op_group``, the GEMMs' device
+    time split by their operand shapes (:func:`gemm_groups`); with
+    ``ranges``, the device time inside each ``record_function`` range of
+    those names.  The profiler's own host cost is inside the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
+    with profile(activities=acts, record_shapes=op_group is not None) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -580,9 +631,10 @@ def profile_steps(run, steps: int, follow: str = "") -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events only (kernels, copies): a CPU op's device time
-    # would count its kernels a second time
+    # would count its kernels a second time, and a record_function range
+    # shows on the device timeline too, spanning its kernels
     kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+               if e.device_type == DeviceType.CUDA and e.key not in ranges]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
     groups = {}
@@ -604,6 +656,14 @@ def profile_steps(run, steps: int, follow: str = "") -> dict:
     }
     if follow:
         out["launches_of_" + follow] = launch_events(prof, follow)
+    if op_group:
+        out["gemm_ms_per_step_by_operands"] = gemm_groups(prof, op_group,
+                                                          steps)
+    if ranges:
+        out["ms_per_step_in_ranges"] = {
+            name: sum(_device_us(e) for e in prof.events()
+                      if e.name == name and e.device_type == DeviceType.CPU)
+            / steps / 1e3 for name in ranges}
     return out
 
 
@@ -725,13 +785,64 @@ def phase_card_vs_cpu():
 
 def remat_launches(n: int) -> dict:
     """Flash and RMSNorm launches per train step of ``n`` layers under
-    "full" or "ffn" remat: eager recompute replays each layer's forward up
-    to its last needed tensor, so every layer's attention and both its
-    norms run twice (the selective "ffn" policy takes its named tensors
-    from the cache but still runs the ops that feed them), the final norm
-    once; one backward each."""
+    "full", "ffn" or (the MoE layer) "dots" remat: every layer's attention
+    and both its norms run twice, the final norm once; one backward each.
+    "full" and "dots" replay a layer up to its last needed tensor; "ffn"
+    replays the attention half from the layer's input, and the FFN half's
+    backward recomputes its norm from the saved residual."""
     return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
             "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1}
+
+
+def run_steps(step, params, opt_state, tokens, steps: int):
+    """A warm-up step, then ``steps`` timed steps on one fixed batch, each
+    ending in ``loss.item()``, with every kernel's launches per step:
+    (params, opt_state, losses, step seconds, launches per step, the
+    warm-up's seconds)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, opt_state, loss = step(params, opt_state, tokens)
+    losses = [loss.item()]
+    first_s = time.perf_counter() - t0
+    step_s, per_step = [], []
+    for _ in range(steps):
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, loss = step(params, opt_state, tokens)
+        losses.append(loss.item())          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        per_step.append(dict(_kernels.LAUNCHES))
+    return params, opt_state, losses, step_s, per_step, first_s
+
+
+class _CountOps(TorchDispatchMode):
+    """Counts the calls of the given aten ops under it."""
+
+    def __init__(self, ops):
+        super().__init__()
+        self.counts = dict.fromkeys(ops, 0)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in self.counts:
+            self.counts[func] += 1
+        return func(*args, **(kwargs or {}))
+
+
+def layer_backward_mms(cfg, params, tokens) -> dict:
+    """``aten::mm`` calls in the backward of the layers (the gradient of
+    ``forward_hidden``, no vocab projection): per layer, the 2 x 7
+    projections' gradient GEMMs plus what the remat policy reruns."""
+    leaves = list(training.tree_leaves(params))
+    for p in leaves:
+        p.requires_grad_(True)
+    x = forward_hidden(params, tokens[:, :-1], cfg)
+    mm = torch.ops.aten.mm.default
+    with _CountOps((mm,)) as counter:
+        torch.autograd.grad(x, leaves, torch.ones_like(x), allow_unused=True)
+    per_layer = counter.counts[mm] / cfg.layers
+    return {"backward_mm": counter.counts[mm], "per_layer": per_layer,
+            "rerun_per_layer": per_layer - 2 * 7}
 
 
 def train_cfg(**kw) -> LlamaConfig:
@@ -750,21 +861,8 @@ def phase_train() -> dict:
     params, opt_state = init_all(gen)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
                            device="cuda", generator=gen)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, opt_state, loss = step(params, opt_state, tokens)
-    losses = [loss.item()]
-    first_s = time.perf_counter() - t0
-
-    step_s, per_step = [], []
-    for _ in range(TRAIN_STEPS):
-        _kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, tokens)
-        losses.append(loss.item())          # waits for the step
-        step_s.append(time.perf_counter() - t0)
-        per_step.append(dict(_kernels.LAUNCHES))
+    params, opt_state, losses, step_s, per_step, first_s = run_steps(
+        step, params, opt_state, tokens, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
     want = {**remat_launches(n), "adam8_fused": 0}
@@ -842,13 +940,19 @@ def e4m3_limit_grad() -> float:
     return g[(v / (v / torch.tensor(448.0))) > 448][0].item()
 
 
+def adam8_dtype(case: str) -> torch.dtype:
+    """A case's leaf dtype: "f32" leaves (the MoE router) are float32,
+    every other case bfloat16."""
+    return torch.float32 if case == "f32" else torch.bfloat16
+
+
 def adam8_grad(shape, case: str, gen) -> torch.Tensor:
     g = torch.randn(shape, device="cuda", generator=gen) * 1e-2
     if case == "zero_block":
         g.view(-1, g.shape[-1])[0, :256] = 0.0
     elif case == "e4m3_limit":
         g.view(-1, 256).mul_(0.1)[:, 0] = e4m3_limit_grad()
-    return g.bfloat16()
+    return g.to(adam8_dtype(case))
 
 
 def adam8_bytes(p: torch.Tensor) -> int:
@@ -907,8 +1011,8 @@ def adam8_tree_case(spec, gen) -> dict:
     and its repeat) and by adam8_plain; after every step each leaf's p,
     codes and scales are compared, bit for bit."""
     opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
-    p0 = [(torch.randn(shape, device="cuda", generator=gen) * 0.1).bfloat16()
-          for shape, _ in spec]
+    p0 = [(torch.randn(shape, device="cuda", generator=gen) * 0.1).to(
+        adam8_dtype(case)) for shape, case in spec]
     runs = {name: [_a8_leaf(p.clone()) for p in p0]
             for name in ("kernel", "repeat", "plain")}
     del p0
@@ -961,7 +1065,9 @@ def phase_kernels_adam8():
     """adam8_fused against its plain version on the card, three steps with
     carried state, and a second kernel run that must repeat its bits: each
     leaf shape alone, then one tree of the 12 llama3-1b leaves with the
-    whole-row, zero-block and e4m3-limit leaves, in one launch."""
+    whole-row, zero-block and e4m3-limit leaves, in one launch; then the
+    MoE leaf shapes (an f32 router of whole 8-value rows and a slice of
+    the bf16 expert leaves), which must be the same bits."""
     gen = torch.Generator("cuda").manual_seed(SEED + 8)
     cases = [[((128256, 2048), "random")], [((16, 2048, 512), "random")],
              [((2048,), "random")], [((3, 77), "random")],
@@ -969,13 +1075,17 @@ def phase_kernels_adam8():
              [*((s, "random") for s in A8_LLAMA_SHAPES),
               ((3, 77), "random"), ((8, 512), "zero_block"),
               ((16, 256), "e4m3_limit")]]
-    for spec in cases:
+    moe_case = [((16, 2048, 8), "f32"), ((2, 8, 2048, 5632), "random")]
+    for spec in [*cases, moe_case]:
         res = adam8_tree_case(spec, gen)
         emit({"phase": "kernels", "kernel": "adam8_fused",
               "leaves": [[list(shape), case] for shape, case in spec],
               **res, "tol_if_not_bit_identical": A8_TOL})
         check(res["ok"], f"adam8_fused disagrees with its plain version on "
                          f"{[shape for shape, _ in spec]}")
+        check(spec is not moe_case
+              or all(st["bit_identical"] for st in res["steps"]),
+              "adam8_fused is not its plain version's bits on the MoE leaves")
         torch.cuda.empty_cache()
 
 
@@ -998,24 +1108,11 @@ def phase_train_adam8(name: str) -> dict:
     cfg, step, params, opt_state, tokens = adam8_cell()
     n = cfg.layers
     leaves = list(training.tree_leaves(params))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params, opt_state, loss = step(params, opt_state, tokens)
-    losses = [loss.item()]
-    first_s = time.perf_counter() - t0
-
-    step_s, per_step = [], []
-    for _ in range(TRAIN_STEPS):
-        _kernels.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        params, opt_state, loss = step(params, opt_state, tokens)
-        losses.append(loss.item())          # waits for the step
-        step_s.append(time.perf_counter() - t0)
-        per_step.append(dict(_kernels.LAUNCHES))
+    params, opt_state, losses, step_s, per_step, first_s = run_steps(
+        step, params, opt_state, tokens, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
-    # the "ffn" policy replays as "full" does; one update launch for every
+    # the kernels run as under "full" remat; one update launch for every
     # TABLE_LEAVES leaves (1 at llama3-1b's 12)
     updates = -(-len(leaves) // optim8bit.TABLE_LEAVES)
     want = {**remat_launches(n), "adam8_fused": updates}
@@ -1043,6 +1140,11 @@ def phase_train_adam8(name: str) -> dict:
         params, opt_state, _ = step(params, opt_state, tokens)
 
     prof = profile_steps(run, 1, follow="adam8")
+    # the "ffn" save set: the layers' backward reruns 3 projections a layer
+    # (wq, wk, wv), as XLA's save_only_these_names does
+    mms = layer_backward_mms(cfg, params, tokens)
+    check(mms["rerun_per_layer"] == 3,
+          f"the ffn policy's layer backward reruns {mms} matmuls")
     adam = {"launches": updates,
             "device_ms": prof["ms_per_step_by_group"].get("adam8_fused"),
             "bound_ms": sum(adam8_bytes(p) for p in leaves) / bw * 1e3,
@@ -1054,7 +1156,7 @@ def phase_train_adam8(name: str) -> dict:
           # device time over the unprofiled median step
           "device_idle_share_unprofiled": None if dev_ms is None
           else 1 - dev_ms / (med * 1e3),
-          "adam8_fused_per_step": adam})
+          "adam8_fused_per_step": adam, "layer_backward_mm": mms})
     del params, opt_state, step, leaves
     torch.cuda.empty_cache()
     return {"launches_per_step": per_step[-1], "adam8_per_step": adam}
@@ -1136,6 +1238,258 @@ def phase_adam8_leaves(name: str) -> None:
           "ms_per_step_by_group": prof["ms_per_step_by_group"],
           "device_ms_per_step": prof["device_ms_per_step"]})
     del params, opt_state, step
+    torch.cuda.empty_cache()
+
+
+def phase_remat_ffn() -> None:
+    """The llama3-1b+ffn+adam8 cell's step, profiled over 3 steps after a
+    warm-up (device ms per step by group), and the aten::mm calls of its
+    layers' backward per layer.  Uses only ``make_train_step``,
+    ``loss_fn`` and ``forward_hidden``, so it measures an older tree too
+    (unpack it with ``git archive`` into ``.chip_smoke_tmp/`` and copy
+    this script in)."""
+    cfg, step, params, opt_state, tokens = adam8_cell()
+    params, opt_state, _ = step(params, opt_state, tokens)    # warm-up
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    prof = profile_steps(run, 3)
+    emit({"phase": "remat_ffn", "remat_policy": cfg.remat_policy,
+          "layer_backward_mm": layer_backward_mms(cfg, params, tokens),
+          "device_ms_per_step": prof["device_ms_per_step"],
+          "step_ms": prof["step_ms"],
+          "ms_per_step_by_group": prof["ms_per_step_by_group"]})
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+
+
+# -- the MoE train path -------------------------------------------------------
+
+
+def moe_gemm_group(cfg, seq: int):
+    """The MoE step's GEMM groups by operand shapes (:func:`gemm_groups`):
+    a product with the expert FFN width is an expert GEMM, one with the
+    experts x capacity width a dispatch or combine einsum, an ``aten::mm``
+    with the expert count the router; the rest are attention and vocab
+    products.  At ``MoEConfig.small`` the widths 5632, 5120 and 8 occur in
+    no other product."""
+    f, ec, e = cfg.ffn, cfg.experts * cfg.capacity(seq), cfg.experts
+
+    def group(shapes):
+        dims = {d for shape in shapes for d in shape}
+        if f in dims:
+            return "moe expert GEMMs"
+        if ec in dims:
+            return "moe dispatch/combine einsums"
+        if e in dims:
+            return "moe router"
+        return "attention/vocab GEMMs"
+
+    return group
+
+
+def moe_cell(optimizer=None):
+    """The MoE cell's config, train step, initial parameters and optimizer
+    state, and its fixed batch."""
+    from tpu_network_operator_torch.models import moe
+
+    cfg = moe.MoEConfig.small()
+    step, init_all, opt = moe.make_train_step(cfg, optimizer=optimizer,
+                                              device="cuda")
+    gen = torch.Generator("cuda").manual_seed(SEED + 14)
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_all(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1),
+                           device="cuda", generator=gen)
+    return cfg, step, opt, params, opt_state, tokens
+
+
+def phase_train_moe(name: str) -> dict:
+    """MoEConfig.small at full width and depth, batch 4 x 2048, AdamW:
+    timed steps with kernels 1 to 5's launches read per step and the loss
+    required to fall, then one profiled step; then a short adamw8bit run
+    of the same model, kernel 6 updating the MoE tree in each step."""
+    bw, _, _ = peaks(name)
+    cfg, step, opt, params, opt_state, tokens = moe_cell()
+    n = cfg.layers
+    params, opt_state, losses, step_s, per_step, first_s = run_steps(
+        step, params, opt_state, tokens, MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    want = {**remat_launches(n), "adam8_fused": 0}
+    check(all(p == want for p in per_step),
+          f"MoE train-step launches {per_step}, expected {want} per step")
+    check(all(math.isfinite(v) for v in losses), f"MoE losses {losses}")
+    check(losses[-1] < losses[0],
+          f"the MoE loss did not fall on the fixed batch: {losses}")
+    med = statistics.median(step_s)
+    emit({"phase": "train_moe", "preset": "moe:small", "layers": n,
+          "params": cfg.num_params(), "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "head_dim": cfg.head_dim, "experts": cfg.experts,
+          "capacity": cfg.capacity(MOE_SEQ), "xent_chunk": cfg.xent_chunk,
+          "remat_policy": cfg.remat_policy, "optimizer": "adamw(3e-4, 0.1)",
+          "first_step_s": first_s, "step_s": step_s, "median_step_s": med,
+          "tokens_per_s": MOE_BATCH * MOE_SEQ / med, "losses": losses,
+          "launches_per_step": per_step[-1],
+          "max_memory_allocated_gib": peak / 2**30})
+
+    def run():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    # AdamW's device time: its aten ops' kernels inside a range (a range
+    # does not see a kernel launched through ctypes, as adam8_fused is)
+    apply = opt.apply
+
+    def apply_in_range(*args):
+        with torch.profiler.record_function("optimizer"):
+            return apply(*args)
+
+    opt.apply = apply_in_range
+    prof = profile_steps(run, 1, op_group=moe_gemm_group(cfg, MOE_SEQ),
+                         ranges=("optimizer",))
+    busy, dev_ms = prof["device_busy_share"], prof["device_ms_per_step"]
+    emit({"phase": "profile_train_moe", **prof,
+          "device_idle_share": None if busy is None else 1 - busy,
+          "device_idle_share_unprofiled": None if dev_ms is None
+          else 1 - dev_ms / (med * 1e3)})
+    del params, opt_state, step
+    torch.cuda.empty_cache()
+
+    cfg, step, _, params, opt_state, tokens = moe_cell(
+        optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD))
+    leaves = list(training.tree_leaves(params))
+    params, opt_state, a8_losses, a8_s, a8_steps, a8_first = run_steps(
+        step, params, opt_state, tokens, MOE_A8_STEPS)
+    a8_peak = torch.cuda.max_memory_allocated()
+    updates = -(-len(leaves) // optim8bit.TABLE_LEAVES)
+    want8 = {**remat_launches(n), "adam8_fused": updates}
+    check(all(p == want8 for p in a8_steps),
+          f"MoE adam8 launches {a8_steps}, expected {want8} per step")
+    check(all(math.isfinite(v) for v in a8_losses),
+          f"MoE adam8 losses {a8_losses}")
+    check(a8_losses[-1] < a8_losses[0],
+          f"the MoE adam8 loss did not fall: {a8_losses}")
+
+    def run8():
+        nonlocal params, opt_state
+        params, opt_state, _ = step(params, opt_state, tokens)
+
+    prof8 = profile_steps(run8, 1, follow="adam8")
+    update_bound_ms = sum(adam8_bytes(p) for p in leaves) / bw * 1e3
+    emit({"phase": "train_moe_adam8", "preset": "moe:small", "layers": n,
+          "leaves": [[list(p.shape), str(p.dtype)] for p in leaves],
+          "optimizer": f"adamw8bit({A8_LR}, {A8_WD})",
+          "first_step_s": a8_first, "step_s": a8_s,
+          "median_step_s": statistics.median(a8_s), "losses": a8_losses,
+          "launches_per_step": a8_steps[-1],
+          "max_memory_allocated_gib": a8_peak / 2**30,
+          "moment_bytes": optim8bit.moment_bytes(opt_state),
+          "update_in_step_ms": prof8["ms_per_step_by_group"].get(
+              "adam8_fused"),
+          "update_bound_ms": update_bound_ms,
+          "device_ms_per_step": prof8["device_ms_per_step"],
+          "ms_per_step_by_group": prof8["ms_per_step_by_group"]})
+    del params, opt_state, step, leaves
+    torch.cuda.empty_cache()
+    return {"launches_per_step": per_step[-1],
+            "adam8_launches_per_step": a8_steps[-1],
+            "adam8_in_step_ms": prof8["ms_per_step_by_group"].get(
+                "adam8_fused"),
+            "adam8_bound_ms": update_bound_ms,
+            "attention": (MOE_BATCH, MOE_SEQ, cfg.heads, cfg.kv_heads,
+                          cfg.head_dim)}
+
+
+def phase_train_moe_card_vs_cpu():
+    """One loss and gradient at MoEConfig.small widths with 2 layers,
+    batch 1 x 256, from the same weights on the card and on the CPU, and
+    the share of (token, slot) routing choices the two make alike.  A
+    routing choice flips between the devices where a token's k-th and
+    (k+1)-th experts are nearly tied, and a flipped token's gradient is a
+    different expert's, about 1/16 of the norm at 256 tokens: so every
+    flip must sit at such a tie, the loss is held to TRAIN_LOSS_REL, and
+    the gradients to TRAIN_GRAD_REL in a second card run that takes the
+    CPU's expert choices (the same numerics, the same routing)."""
+    from tpu_network_operator_torch.models import moe
+
+    cfg = dataclasses.replace(moe.MoEConfig.small(), layers=2, remat=False)
+    params_gpu = moe.init_params(
+        cfg, torch.Generator("cuda").manual_seed(SEED + 15), "cuda")
+    params_cpu = params_to(params_gpu, "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (1, 257),
+                           generator=torch.Generator().manual_seed(SEED + 16))
+    real_top_k = moe.top_k_experts
+
+    def run(params, pinned=None):
+        """(loss, gradients, [(probs, expert choices)] per layer), the
+        choices taken from ``pinned`` when given."""
+        seen = []
+
+        def top_k(probs, k):
+            idx = real_top_k(probs, k) if pinned is None \
+                else pinned[len(seen)].to(probs.device)
+            seen.append((probs.float().cpu(), idx.cpu()))
+            return idx
+
+        moe.top_k_experts = top_k
+        try:
+            leaves = [t.requires_grad_() for t in
+                      training.tree_leaves(params)]
+            dev = leaves[0].device
+            loss = moe.loss_fn(params, tokens.to(dev), cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            moe.top_k_experts = real_top_k
+        return loss.item(), [g.float().cpu() for g in grads], seen
+
+    cpu = run(params_cpu)
+    card = run(params_gpu)
+    pinned = run(params_gpu, [idx for _, idx in cpu[2]])
+    k = cfg.experts_per_token
+    agree, total, near_ties = 0, 0, True
+    for (p_cpu, i_cpu), (p_card, i_card) in zip(cpu[2], card[2]):
+        same = i_cpu == i_card
+        agree += int(same.sum())
+        total += same.numel()
+        # a flip is explained when the CPU's probabilities of two adjacent
+        # ranks among the first k + 1 lie closer than twice the largest
+        # card-vs-CPU probability difference of the layer
+        desc = p_cpu.sort(-1, descending=True).values[..., :k + 1]
+        gap = (desc[..., :-1] - desc[..., 1:]).min(-1).values
+        dev = (p_card - p_cpu).abs().max()
+        near_ties &= bool(torch.all(gap[~same.all(-1)] < 2 * dev))
+    names = list(_leaf_names(params_cpu))
+
+    def compare(res):
+        loss_rel = abs(res[0] - cpu[0]) / abs(cpu[0])
+        return loss_rel, {name: rel_norm(g, r) for name, g, r in
+                          zip(names, res[1], cpu[1])}
+
+    loss_rel, grad_rel = compare(card)
+    pinned_loss_rel, pinned_grad_rel = compare(pinned)
+    emit({"phase": "train_moe_card_vs_cpu", "layers": cfg.layers,
+          "batch": 1, "seq": 256, "remat": cfg.remat,
+          "loss_cuda": card[0], "loss_cpu": cpu[0], "loss_rel": loss_rel,
+          "routing_agreement": agree / total, "routing_choices": total,
+          "flips_at_near_ties": near_ties,
+          "grad_rel_norm_own_routing": grad_rel,
+          "pinned_routing": {"loss_cuda": pinned[0],
+                             "loss_rel": pinned_loss_rel,
+                             "grad_rel_norm": pinned_grad_rel},
+          "tol": {"loss_rel": TRAIN_LOSS_REL,
+                  "grad_rel_norm": TRAIN_GRAD_REL}})
+    check(loss_rel < TRAIN_LOSS_REL, f"MoE card vs CPU loss: {loss_rel}")
+    check(near_ties, "MoE card vs CPU: a routing choice flipped away from "
+                     "a near-tie")
+    check(pinned_loss_rel < TRAIN_LOSS_REL,
+          f"MoE card vs CPU loss, pinned routing: {pinned_loss_rel}")
+    worst = max(pinned_grad_rel, key=pinned_grad_rel.get)
+    check(pinned_grad_rel[worst] < TRAIN_GRAD_REL,
+          f"MoE card vs CPU gradient of {worst}, pinned routing: "
+          f"{pinned_grad_rel[worst]}")
+    del params_gpu
     torch.cuda.empty_cache()
 
 
@@ -1268,13 +1622,82 @@ def _sdpa_backward_ms(q, k, v, do):
     return None, {"backend": None}
 
 
+def flash_fwd_entry(gen, b, s, h, hkv, d, iters_plain, bw, peak) -> dict:
+    """The flash forward kernel at [B, S, H/Hkv, D] causal: its time, its
+    plain version's, SDPA's and its bound."""
+    q, k, v = _flash_case(b, h, hkv, s, d, gen)
+    o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                  head_dim=2)
+    ro, rlse = _flash_plain_bshd(q, k, v, True)
+    err = max_err(o, ro)
+    check(err <= FLASH_O_ATOL and max_err(lse, rlse) <= FLASH_LSE_ATOL,
+          f"flash_fwd disagrees with its plain version at {(b, s, h, d)}")
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
+    pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
+    flops = 4 * d * pairs * b * h       # QK^T and PV over the causal pairs
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {
+        "shape": [b, s, h, hkv, d], "max_abs_err": err,
+        "ms": time_ms(lambda: fa._flash_fwd_kernel(
+            q, k, v, causal=True, seq_dim=1, head_dim=2)),
+        "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, True),
+                            iters=iters_plain, reps=5),
+        **_bound(nbytes, flops, bw, peak),
+        "library_ms": time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+    }
+
+
+def flash_bwd_entries(gen, b, s, h, hkv, d, bw, peak):
+    """The dQ and the dK/dV kernels at [B, S, H/Hkv, D] causal: each one's
+    time, its plain version's and its bound, and SDPA's whole backward."""
+    inputs = _flash_bwd_inputs(b, h, hkv, s, d, True, gen)
+    q, k, v, do, lse, delta = inputs
+    outs = _flash_bwd_kernels(*inputs, True)
+    refs = _flash_bwd_plain_bshd(*inputs, True)
+    res, ok = _grads_ok(outs, refs)
+    check(ok, f"flash backward disagrees with its plain version at "
+              f"{(b, s, h, hkv, d)}: {res}")
+    del outs, refs
+    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
+    bp_dq = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DQ_TILE, True)
+    bp_dkv = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DKV_TILE,
+                              True)
+    lib_ms, lib = _sdpa_backward_ms(q, k, v, do)
+    pairs = s * (s + 1) // 2
+    matmul = 2 * d * pairs * b * h          # one causal product, all heads
+    q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, b * h * s * 4
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
+    common = {"shape": [b, s, h, hkv, d], "library_ms": lib_ms,
+              "library": {**lib, "covers": "dq+dkv"}}
+    dq = {**common, "max_abs_err": res["dq"]["max_abs_err"],
+          "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),
+          "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp_dq, q.dtype),
+                              iters=1, reps=3),
+          # S, dP and dQ; reads q, dO, k, v, lse, delta, writes dq
+          **_bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, 3 * matmul,
+                   bw, peak)}
+    dkv = {**common, "max_abs_err": max(res["dk"]["max_abs_err"],
+                                        res["dv"]["max_abs_err"]),
+           "ms": time_ms(lambda: fa._flash_bwd_dkv_kernel(*inputs, **kw)),
+           "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp_dkv),
+                               iters=1, reps=3),
+           # S, dP, dV and dK; reads q, dO, k, v, lse, delta, writes dk, dv
+           **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
+                    bw, peak)}
+    return dq, dkv
+
+
 def phase_table(name: str, launches: dict, train_launches: dict,
-                adam8: dict):
+                adam8: dict, moe_runs: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
     h, hkv, d = cfg.heads, cfg.kv_heads, cfg.head_dim
     tb, ts = TRAIN_BATCH, TRAIN_SEQ
+    moe_launches = moe_runs["launches_per_step"]
+    moe_geom = moe_runs["attention"]     # [B, S, H, Hkv, D]: D 128
 
     def rms_entry(n_rows):
         x, s = _rms_case((n_rows, cfg.hidden), gen)
@@ -1294,30 +1717,6 @@ def phase_table(name: str, launches: dict, train_launches: dict,
                 x, (cfg.hidden,), s, cfg.rms_eps)),
         }
 
-    def flash_fwd_entry(b, s, iters_plain):
-        q, k, v = _flash_case(b, h, hkv, s, d, gen)
-        o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
-                                      head_dim=2)
-        ro, rlse = _flash_plain_bshd(q, k, v, True)
-        err = max_err(o, ro)
-        check(err <= FLASH_O_ATOL and max_err(lse, rlse) <= FLASH_LSE_ATOL,
-              f"flash_fwd disagrees with its plain version at {(b, s)}")
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
-        pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
-        flops = 4 * d * pairs * b * h       # QK^T and PV over the causal pairs
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        return {
-            "shape": [b, s, h, hkv, d], "max_abs_err": err,
-            "ms": time_ms(lambda: fa._flash_fwd_kernel(
-                q, k, v, causal=True, seq_dim=1, head_dim=2)),
-            "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, True),
-                                iters=iters_plain, reps=5),
-            **_bound(nbytes, flops, bw, bf16_peak),
-            "library_ms": time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)),
-        }
-
     # -- RMSNorm forward: prefill and decode (serving), and the train shape
     rows = [{
         "name": "rms_norm_fwd", "route": "cuda",
@@ -1328,6 +1727,9 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         **rms_entry(BATCH * PROMPT), "decode": rms_entry(BATCH),
         "train": {**rms_entry(tb * ts),
                   "launches": train_launches["rms_norm_fwd"]},
+        # the MoE cell's rows are the prefill shape's, 8192 x 2048
+        "train_moe": {"shape": [MOE_BATCH * MOE_SEQ, cfg.hidden],
+                      "launches": moe_launches["rms_norm_fwd"]},
     }]
 
     # -- RMSNorm backward at the train shape
@@ -1359,71 +1761,48 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         # F.rms_norm forward + backward, minus its forward
         "library_ms": time_ms(lambda: torch.autograd.grad(
             lib_fwd(), (xr, sr), dy)) - time_ms(lib_fwd),
+        "train_moe": {"launches": moe_launches["rms_norm_bwd"]},
     })
     del x, dy, dx, rdx, xr, sr
 
-    # -- flash forward: the prefill shape (serving) and the train shape
+    # -- flash forward: the prefill shape (serving), the train shape and
+    # the MoE cell's (head_dim 128)
     rows.append({
         "name": "flash_fwd", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/flash_fwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:67",
         "design": DESIGN["flash_fwd"],
         "launches": launches["flash_fwd"],
-        **flash_fwd_entry(BATCH, PROMPT, 3),
-        "train": {**flash_fwd_entry(tb, ts, 1),
+        **flash_fwd_entry(gen, BATCH, PROMPT, h, hkv, d, 3, bw, bf16_peak),
+        "train": {**flash_fwd_entry(gen, tb, ts, h, hkv, d, 1, bw,
+                                    bf16_peak),
                   "launches": train_launches["flash_fwd"]},
+        "train_moe_d128": {**flash_fwd_entry(gen, *moe_geom, 1, bw,
+                                             bf16_peak),
+                           "launches": moe_launches["flash_fwd"]},
     })
 
-    # -- flash backward at the train shape
-    inputs = _flash_bwd_inputs(tb, h, hkv, ts, d, True, gen)
-    q, k, v, do, lse, delta = inputs
-    outs = _flash_bwd_kernels(*inputs, True)
-    refs = _flash_bwd_plain_bshd(*inputs, True)
-    res, ok = _grads_ok(outs, refs)
-    check(ok, f"flash backward disagrees with its plain version at the "
-              f"train shape: {res}")
-    del outs, refs
-    qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    bp_dq = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DQ_TILE, True)
-    bp_dkv = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DKV_TILE,
-                              True)
-    lib_ms, lib = _sdpa_backward_ms(q, k, v, do)
-    pairs = ts * (ts + 1) // 2
-    matmul = 2 * d * pairs * tb * h         # one causal product, all heads
-    q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, tb * h * ts * 4
-    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
-    common = {"route": "cuda", "shape": [tb, ts, h, hkv, d],
-              "library_ms": lib_ms, "library": {**lib, "covers": "dq+dkv"}}
+    # -- flash backward at the train shape and the MoE cell's
+    dq, dkv = flash_bwd_entries(gen, tb, ts, h, hkv, d, bw, bf16_peak)
+    moe_dq, moe_dkv = flash_bwd_entries(gen, *moe_geom, bw, bf16_peak)
     rows.append({
-        "name": "flash_bwd_dq", **common,
+        "name": "flash_bwd_dq", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/flash_bwd.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:158",
         "design": DESIGN["flash_bwd_dq"],
-        "launches": train_launches["flash_bwd_dq"],
-        "max_abs_err": res["dq"]["max_abs_err"],
-        "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),
-        "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp_dq, q.dtype),
-                            iters=1, reps=3),
-        # S, dP and dQ; reads q, dO, k, v, lse, delta, writes dq
-        **_bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, 3 * matmul,
-                 bw, bf16_peak),
+        "launches": train_launches["flash_bwd_dq"], **dq,
+        "train_moe_d128": {**moe_dq,
+                           "launches": moe_launches["flash_bwd_dq"]},
     })
     rows.append({
-        "name": "flash_bwd_dkv", **common,
+        "name": "flash_bwd_dkv", "route": "cuda",
         "source": "tpu_network_operator_torch/ops/csrc/flash_bwd_dkv.cu",
         "replaces": "tpu_network_operator/ops/pallas_attention.py:204",
         "design": DESIGN["flash_bwd_dkv"],
-        "launches": train_launches["flash_bwd_dkv"],
-        "max_abs_err": max(res["dk"]["max_abs_err"],
-                           res["dv"]["max_abs_err"]),
-        "ms": time_ms(lambda: fa._flash_bwd_dkv_kernel(*inputs, **kw)),
-        "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp_dkv),
-                            iters=1, reps=3),
-        # S, dP, dV and dK; reads q, dO, k, v, lse, delta, writes dk, dv
-        **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
-                 bw, bf16_peak),
+        "launches": train_launches["flash_bwd_dkv"], **dkv,
+        "train_moe_d128": {**moe_dkv,
+                           "launches": moe_launches["flash_bwd_dkv"]},
     })
-    del inputs, q, k, v, do, lse, delta, qt, kt, vt, dot, bp_dq, bp_dkv
 
     # -- 8-bit AdamW: the largest leaf (embed and lm_head) as a one-leaf
     # table, moments non-zero from one step, each timed call stepping the
@@ -1470,6 +1849,11 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "in_step": {"device_ms": in_step["device_ms"],
                     "launches": in_step["launches"],
                     "bound_ms": in_step["bound_ms"], "bound_by": "bytes"},
+        "train_moe_adam8": {
+            "shape": "the 13 MoEConfig.small leaves, one launch, in the step",
+            "launches": moe_runs["adam8_launches_per_step"]["adam8_fused"],
+            "ms": moe_runs["adam8_in_step_ms"],
+            "bound_ms": moe_runs["adam8_bound_ms"], "bound_by": "bytes"},
     })
     emit({"kernels": rows})
 
@@ -1479,11 +1863,18 @@ def main(argv=None) -> int:
     args.add_argument("--adam8-leaves", action="store_true",
                       help="only time the 8-bit AdamW update at the "
                            "llama3-1b leaves (phase_adam8_leaves)")
+    args.add_argument("--remat-ffn", action="store_true",
+                      help="only profile the llama3-1b+ffn+adam8 step and "
+                           "count its layers' backward matmuls "
+                           "(phase_remat_ffn)")
     args = args.parse_args(argv)
     name, smi = phase_device()
     phase_build()
-    if args.adam8_leaves:
-        phase_adam8_leaves(name)
+    if args.adam8_leaves or args.remat_ffn:
+        if args.adam8_leaves:
+            phase_adam8_leaves(name)
+        if args.remat_ffn:
+            phase_remat_ffn()
         print(smi, flush=True)
         return 0
     phase_kernels()
@@ -1495,7 +1886,9 @@ def main(argv=None) -> int:
     phase_train_card_vs_cpu()
     adam8 = phase_train_adam8(name)
     phase_checkpoint()
-    phase_table(name, launches, train_launches, adam8)
+    moe_runs = phase_train_moe(name)
+    phase_train_moe_card_vs_cpu()
+    phase_table(name, launches, train_launches, adam8, moe_runs)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

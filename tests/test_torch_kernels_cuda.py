@@ -20,6 +20,7 @@ import torch
 
 from tpu_network_operator_torch.models import generate as tgen
 from tpu_network_operator_torch.models import llama as tllama
+from tpu_network_operator_torch.models import moe as tmoe
 from tpu_network_operator_torch.models import optim8bit as topt
 from tpu_network_operator_torch.ops import _kernels
 from tpu_network_operator_torch.ops import flash_attention as tfa
@@ -774,3 +775,56 @@ def test_adam8_train_step_on_card_matches_cpu(cuda):
                     tllama.training.tree_leaves(out["cpu"][1])):
         err = (a.float() - b.float()).abs()
         assert torch.all(err <= 6 * 3e-4 + 2.0 ** -8 * b.float().abs())
+
+
+# -- the MoE model on the card --------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["random", "tied"])
+def test_moe_route_on_card_is_the_cpu_route(cuda, case):
+    # integer cumulative sums and a stable sort: the capacity positions,
+    # drops and tie-breaks are exact, the normalized gate values divide
+    # two f32 tensors (correctly rounded on both): the same bits as the
+    # CPU, and on a repeat
+    if case == "tied":
+        probs = torch.full((2, 512, 8), 0.125, device="cuda")
+    else:
+        probs = torch.softmax(torch.randn(2, 512, 8, device="cuda",
+                                          generator=cuda) * 2, -1)
+    cap = tmoe.MoEConfig.small().capacity(512)
+    d, c = tmoe.route(probs, 2, cap)
+    d2, c2 = tmoe.route(probs, 2, cap)
+    rd, rc = tmoe.route(probs.cpu(), 2, cap)
+    assert torch.equal(d.cpu(), rd) and torch.equal(c.cpu(), rc)
+    assert torch.equal(d, d2) and torch.equal(c, c2)
+    if case == "tied":          # ties go to experts 0 and 1, which overflow
+        assert int(rd.sum()) < 2 * 2 * 512
+
+
+def test_moe_train_step_on_card_matches_cpu(cuda):
+    # a 2-layer MoE at head_dim 128 (flash at the MoE's D) under "dots"
+    # remat and adamw8bit on the card (kernels 1 to 6) against the CPU
+    # (plain versions), one step from the same weights: the launches of
+    # kernels 1 to 5 as chip_smoke.py's remat_launches, one update launch
+    # for the 13 leaves, the loss within 1% (a routing flip at a near-tie
+    # moves one token's loss term, not the mean's first digits)
+    cfg = tmoe.MoEConfig(vocab_size=512, hidden=256, layers=2, heads=2,
+                         kv_heads=1, ffn=384, experts=4, max_seq=256)
+    params = tmoe.init_params(cfg, cuda, "cuda")
+    start = {"cuda": params, "cpu": tllama.params_to(params, "cpu")}
+    tokens = torch.randint(0, 512, (2, 129), device="cuda", generator=cuda)
+    losses = {}
+    for dev, p in start.items():
+        step, _, opt = tmoe.make_train_step(cfg, optimizer="adam8bit",
+                                            device=dev)
+        state = opt.init(p)
+        _kernels.reset_launches()
+        p, state, loss = step(p, state, tokens.to(dev))
+        losses[dev] = loss.item()
+        if dev == "cuda":
+            n = cfg.layers
+            assert dict(_kernels.LAUNCHES) == {
+                "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
+                "adam8_fused": 1}
+    assert abs(losses["cuda"] - losses["cpu"]) < 1e-2 * losses["cpu"]

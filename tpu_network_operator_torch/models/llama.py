@@ -123,6 +123,15 @@ class LlamaConfig:
 # -- parameters ---------------------------------------------------------------
 
 
+def init_weight(shape, fan_in: int, dtype: torch.dtype,
+                generator: torch.Generator, device) -> torch.Tensor:
+    """A weight drawn truncated-normal(±3σ) in f32 from ``generator``,
+    scaled by 1/√fan_in and cast to ``dtype`` (the reference's init)."""
+    w = torch.empty(shape, dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return w.mul_(1.0 / math.sqrt(fan_in)).to(dtype)
+
+
 def init_params(cfg: LlamaConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Stacked-layer parameters, truncated-normal(±3σ)/√fan_in init, drawn
@@ -132,10 +141,7 @@ def init_params(cfg: LlamaConfig, generator: torch.Generator,
     h, hd, ffn, n = cfg.hidden, cfg.head_dim, cfg.ffn, cfg.layers
 
     def init(shape, fan_in):
-        w = torch.empty(shape, dtype=torch.float32, device=dev)
-        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0,
-                                    generator=generator)
-        return w.mul_(1.0 / math.sqrt(fan_in)).to(cfg.dtype)
+        return init_weight(shape, fan_in, cfg.dtype, generator, dev)
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
@@ -213,11 +219,9 @@ def attention(cfg: LlamaConfig, q, k, v) -> torch.Tensor:
     return causal_attention(q, k, v)
 
 
-def _layer(cfg: LlamaConfig, cos, sin, x, lp,
-           name=training.no_name) -> torch.Tensor:
-    """One transformer block.  x: [B, S, H]; lp: this layer's params.
-    ``name`` tags the intermediates the selective remat policies save
-    (:func:`.training.name_fn`)."""
+def _attn_half(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
+    """The attention half of a block: the post-attention residual
+    (the reference's ``resid_mid``).  x: [B, S, H]."""
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
     b, s, _ = y.shape
     q = (y @ lp["wq"]).reshape(b, s, cfg.heads, cfg.head_dim)
@@ -226,12 +230,38 @@ def _layer(cfg: LlamaConfig, cos, sin, x, lp,
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
     a = attention(cfg, q, k, v)
-    x = name(x + a.reshape(b, s, -1) @ lp["wo"], "resid_mid")
+    return x + a.reshape(b, s, -1) @ lp["wo"]
 
+
+def _layer(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
+    """One transformer block.  x: [B, S, H]; lp: this layer's params."""
+    x = _attn_half(cfg, cos, sin, x, lp)
     y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    gate = name(y @ lp["w_gate"], "ffn_gate")
-    up = name(y @ lp["w_up"], "ffn_up")
+    gate = y @ lp["w_gate"]
+    up = y @ lp["w_up"]
     return x + (torch.nn.functional.silu(gate) * up) @ lp["w_down"]
+
+
+def _remat_block(cfg: LlamaConfig, cos, sin):
+    """A block under ``cfg.remat_policy``.  "ffn" / "ffn_lite" keep the
+    reference's named tensors: the attention half is recomputed from the
+    block's input, and the FFN half saves its input (``resid_mid``) and
+    ``ffn_gate`` (and ``ffn_up``), so the backward reruns only the
+    attention half's q, k and v projections (and under "ffn_lite" the up
+    projection), as XLA's ``save_only_these_names`` does."""
+    policy = cfg.remat_policy
+    if policy not in training.SAVED_FFN:
+        return training.remat(functools.partial(_layer, cfg, cos, sin),
+                              policy)
+    attn = training.remat(functools.partial(_attn_half, cfg, cos, sin),
+                          "full")
+
+    def block(x, lp):
+        return training.swiglu_residual(
+            attn(x, lp), lp["ln_mlp"], lp["w_gate"], lp["w_up"],
+            lp["w_down"], cfg.rms_eps, policy)
+
+    return block
 
 
 def forward_hidden(params: Params, tokens: torch.Tensor,
@@ -242,11 +272,10 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     x = torch.nn.functional.embedding(tokens, params["embed"]).to(cfg.dtype)
     cos, sin = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            scaling=cfg.rope_scaling_dict, device=x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    block = functools.partial(_layer, cfg, cos, sin,
-                              name=training.name_fn(remat, cfg.remat_policy))
-    if remat:
-        block = training.remat(block, cfg.remat_policy)
+    if cfg.remat and torch.is_grad_enabled():
+        block = _remat_block(cfg, cos, sin)
+    else:
+        block = functools.partial(_layer, cfg, cos, sin)
     for lp in unbind_layers(params):
         x = block(x, lp)
     return rms_norm(x, params["ln_final"], cfg.rms_eps)

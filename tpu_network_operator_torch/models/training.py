@@ -19,49 +19,15 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from ..ops.norms import rms_norm
+
 REMAT_POLICIES = ("dots", "ffn", "ffn_lite", "ffn_offload", "full")
-# the intermediates each named policy keeps (tagged in llama._layer)
-SAVED_NAMES = {
-    "ffn": ("resid_mid", "ffn_gate", "ffn_up"),
-    "ffn_lite": ("resid_mid", "ffn_gate"),
-}
+# the FFN intermediates each named policy keeps beside the post-attention
+# residual (the tensors the reference tags in llama._layer):
+# "ffn_gate" is rms_norm(resid_mid) @ w_gate, "ffn_up" the same @ w_up
+SAVED_FFN = {"ffn": ("ffn_gate", "ffn_up"), "ffn_lite": ("ffn_gate",)}
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
-
-
-# -- named intermediates ------------------------------------------------------
-
-
-@torch.library.custom_op("tpunet::checkpoint_name", mutates_args=())
-def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
-    """x under a name the selective remat policies can save (the
-    counterpart of ``jax.ad_checkpoint.checkpoint_name``).  A custom op
-    may not return its input, so this is a copy: the models call it only
-    under a policy that reads the names (:func:`name_fn`)."""
-    return x.clone()
-
-
-@checkpoint_name.register_fake
-def _(x, name):
-    return torch.empty_like(x)
-
-
-def _name_backward(ctx, grad):
-    return grad, None
-
-
-checkpoint_name.register_autograd(_name_backward)
-
-
-def no_name(x: torch.Tensor, name: str) -> torch.Tensor:
-    """The tagging function when no policy reads the names: x itself."""
-    return x
-
-
-def name_fn(remat: bool, policy: str) -> Callable:
-    """The tagging function a layer uses: :func:`checkpoint_name` under a
-    policy that saves named tensors, the identity otherwise."""
-    return checkpoint_name if remat and policy in SAVED_NAMES else no_name
 
 
 # -- remat --------------------------------------------------------------------
@@ -74,40 +40,31 @@ def _save_ops(ops):
     return policy
 
 
-def _save_names(names):
-    def policy(ctx, op, *args, **kwargs):
-        if op is torch.ops.tpunet.checkpoint_name.default and args[1] in names:
-            return CheckpointPolicy.MUST_SAVE
-        return CheckpointPolicy.PREFER_RECOMPUTE
-    return policy
-
-
 def remat(fn: Callable, policy: str) -> Callable:
     """``fn`` under ``torch.utils.checkpoint`` with the reference's named
     policy (``training.remat_policy``):
 
     * ``full``: save nothing but the inputs, recompute the rest;
     * ``dots``: save every matmul output (``dots_saveable``);
-    * ``ffn`` / ``ffn_lite``: save the tensors tagged ``resid_mid``,
-      ``ffn_gate`` (and ``ffn_up``) by :func:`checkpoint_name`.
+    * ``ffn`` / ``ffn_lite``: save the tensors ``fn`` tags with those
+      names, of which a whole function has none, so nothing is saved, as
+      under the reference's ``save_only_these_names`` for a layer that tags
+      nothing (the MoE layer).  The dense layer keeps its named tensors by
+      splitting itself at them (:func:`swiglu_residual`).
 
-    Eager PyTorch replays the whole function when it recomputes; a saved
-    op's output is taken from the cache instead of being recomputed, but
-    the ops that feed it still run.  ``ffn_offload`` (the ``ffn`` set kept
-    in pinned host memory) is not ported yet and raises."""
-    if policy == "full":
+    The recompute replays ``fn`` up to the last tensor its backward needs.
+    ``ffn_offload`` (the ``ffn`` set kept in pinned host memory) is not
+    ported yet and raises."""
+    if policy in ("full", *SAVED_FFN):
         context_fn = None
     elif policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _save_ops(_MATMULS))
-    elif policy in SAVED_NAMES:
-        context_fn = functools.partial(create_selective_checkpoint_contexts,
-                                       _save_names(SAVED_NAMES[policy]))
     elif policy == "ffn_offload":
         raise NotImplementedError(
             "remat_policy 'ffn_offload' (saved FFN tensors offloaded to "
             "pinned host memory) is not ported yet: see ROADMAP.md, queue "
-            "1 item 3"
+            "1 item 2"
         )
     else:
         raise ValueError(
@@ -121,6 +78,59 @@ def remat(fn: Callable, policy: str) -> Callable:
                           context_fn=context_fn)
 
     return wrapped
+
+
+class _SwiGLUResidual(torch.autograd.Function):
+    """x + (silu(gate) * up) @ w_down with y = rms_norm(x, ln), gate =
+    y @ w_gate and up = y @ w_up, saving x, gate and (``save_up``) up: the
+    "ffn" / "ffn_lite" save set of the dense layer's FFN half.  The
+    backward recomputes y (the RMSNorm forward) and silu(gate) * up, and
+    under "ffn_lite" up, and reruns no other product: the gradient GEMMs
+    are the ones autograd runs, with the same operands in the same
+    layouts, so the gradients are remat=False's bits."""
+
+    @staticmethod
+    def forward(ctx, x, ln, w_gate, w_up, w_down, eps, save_up):
+        y = rms_norm(x, ln, eps)
+        gate = y @ w_gate
+        up = y @ w_up
+        out = x + (torch.nn.functional.silu(gate) * up) @ w_down
+        ctx.save_for_backward(x, ln, w_gate, w_up, w_down, gate,
+                              up if save_up else None)
+        ctx.eps = eps
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ln, w_gate, w_up, w_down, gate, up = ctx.saved_tensors
+        with torch.enable_grad():
+            xd, lnd = x.detach().requires_grad_(), ln.detach().requires_grad_()
+            y = rms_norm(xd, lnd, ctx.eps)
+        y2 = y.detach().reshape(-1, y.shape[-1])
+        if up is None:
+            up = (y2 @ w_up).view(gate.shape)
+        with torch.enable_grad():
+            gd, ud = gate.detach().requires_grad_(), up.detach().requires_grad_()
+            h = torch.nn.functional.silu(gd) * ud
+        g2 = g.reshape(-1, g.shape[-1])
+        dh = g2.mm(w_down.t())
+        dw_down = h.detach().reshape(-1, h.shape[-1]).t().mm(g2)
+        dgate, dup = torch.autograd.grad(h, (gd, ud), dh.view(h.shape))
+        dgate2, dup2 = (t.reshape(-1, t.shape[-1]) for t in (dgate, dup))
+        dy = dgate2.mm(w_gate.t()) + dup2.mm(w_up.t())
+        dx, dln = torch.autograd.grad(y, (xd, lnd), dy.view(y.shape))
+        return (g + dx, dln, y2.t().mm(dgate2), y2.t().mm(dup2), dw_down,
+                None, None)
+
+
+def swiglu_residual(x: torch.Tensor, ln: torch.Tensor, w_gate: torch.Tensor,
+                    w_up: torch.Tensor, w_down: torch.Tensor, eps: float,
+                    policy: str) -> torch.Tensor:
+    """The dense layer's FFN half, x + SwiGLU(rms_norm(x, ln)), keeping
+    :data:`SAVED_FFN` ``[policy]`` for its backward (see
+    :class:`_SwiGLUResidual`)."""
+    return _SwiGLUResidual.apply(x, ln, w_gate, w_up, w_down, eps,
+                                 "ffn_up" in SAVED_FFN[policy])
 
 
 # -- loss ---------------------------------------------------------------------

@@ -7,12 +7,13 @@ versions), with random weights:
 * ``generate`` -- KV-cache decode throughput (tokens/sec) of a Llama-3
   preset;
 * ``train`` -- training throughput (tokens/sec/chip) of a Llama-3 preset
-  with AdamW or 8-bit AdamW (``--optimizer adam8bit``), on a fixed
-  synthetic batch or a token file (``--data``), resuming from and saving
-  to ``--checkpoint-dir``.
+  or, with ``--model moe``, a Mixtral-family MoE preset (tiny, small,
+  mixtral-8x7b), with AdamW or 8-bit AdamW (``--optimizer adam8bit``), on
+  a fixed synthetic batch or a token file (``--data``), resuming from and
+  saving to ``--checkpoint-dir``.
 
-The mesh flags, MoE, HF import (``convert``), the collectives sweep and the
-exec bench come with later slices.
+The mesh flags, expert parallelism, HF import (``convert``), the
+collectives sweep and the exec bench come with later slices.
 """
 
 from .cli import build_parser, main

@@ -45,8 +45,10 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' runs the kernels' plain "
                         "versions (default: cuda)")
-    t.add_argument("--model", choices=["llama"], default="llama")
-    t.add_argument("--preset", default="tiny", choices=LLAMA_PRESET_NAMES)
+    t.add_argument("--model", choices=["llama", "moe"], default="llama")
+    t.add_argument("--preset", default="tiny",
+                   help="the model's preset (llama: %s; moe: tiny, small, "
+                        "mixtral-8x7b)" % ", ".join(LLAMA_PRESET_NAMES))
     t.add_argument("--steps", type=int, default=10)
     t.add_argument("--batch", type=int, default=8)
     t.add_argument("--seq-len", type=int, default=128)

@@ -35,6 +35,16 @@ def llama_presets():
     }
 
 
+def moe_presets():
+    from ..models import MoEConfig
+
+    return {
+        "tiny": MoEConfig.tiny,
+        "small": MoEConfig.small,
+        "mixtral-8x7b": MoEConfig.mixtral_8x7b,
+    }
+
+
 LLAMA_PRESET_NAMES = (
     "tiny", "llama3-150m", "llama3-1b", "llama3-3b", "llama3-8b"
 )

@@ -8,14 +8,20 @@ import time
 import torch
 
 from .. import resolve_device
-from .common import emit, llama_presets, log, pick_preset, sync
+from .common import emit, llama_presets, log, moe_presets, pick_preset, sync
 
 
 def cmd_train(args) -> int:
-    from ..models.llama import make_train_step
+    if args.model == "moe":
+        from ..models.moe import make_train_step
 
+        presets = moe_presets()
+    else:
+        from ..models.llama import make_train_step
+
+        presets = llama_presets()
     device = resolve_device(args.device)
-    cfg = pick_preset(llama_presets(), args.preset, args.model)
+    cfg = pick_preset(presets, args.preset, args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
     step, init_all, _ = make_train_step(cfg, optimizer=optimizer,
                                         device=device)
