@@ -45,9 +45,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
 11. train_moe_card_vs_cpu: one loss and gradient at ``MoEConfig.small``
     widths with 2 layers, batch 1 x 256, on the card and on the CPU, with
     the share of routing choices the two make alike;
-12. the kernel table: each kernel's time at its path's shapes beside its
+12. import_llama: Llama-3.2-1B's published config at full width and depth
+    (tied embeddings, llama3 rope scaling) as an HF checkpoint of seeded
+    random bf16 weights in two safetensors shards, written by this script
+    and imported onto the card with ``convert.load_hf_checkpoint``: every
+    leaf the source's bits, the tied head a tensor of its own; greedy
+    ``generate`` at batch 64, prompt 128, 256 new tokens gives the
+    source's tokens; 2 adamw8bit steps at 4 x 2048 ("ffn", xent 512)
+    lower the loss and untie the head;
+13. convert_train_llama, convert_train_mixtral: the workload CLI's
+    ``convert --optimizer adam8bit`` of a 2-layer full-width checkpoint
+    (that config; ``MoEConfig.small``'s widths as a Mixtral config), then
+    ``train --checkpoint-dir`` with no ``--model`` for 3 steps of 4 x 2048:
+    it resumes at step 0 as the sidecar's family, its first loss is the
+    imported weights' ``loss_fn`` on that batch, and the loss falls;
+14. remat_ffn_offload: the ``llama3-1b+ffn+adam8`` rung under "ffn" and
+    "ffn_offload": one step from the same state gives the same bits; then
+    each policy's step time, peak memory, copies over the host link and a
+    pinned-copy bandwidth probe;
+15. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
-    flash kernels also at the MoE cell's head_dim 128.
+    flash kernels also at the MoE cell's head_dim 128, and its launches in
+    every path above.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
 steps with carried state, bit for bit, each leaf shape alone, the 12
@@ -77,7 +96,10 @@ non-zero without one, printing no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import copy
 import dataclasses
+import io
 import json
 import math
 import shutil
@@ -101,6 +123,7 @@ from tpu_network_operator_torch.models.generate import (  # noqa: E402
     init_cache,
 )
 from tpu_network_operator_torch import data  # noqa: E402
+from tpu_network_operator_torch.models import convert  # noqa: E402
 from tpu_network_operator_torch.models import optim8bit  # noqa: E402
 from tpu_network_operator_torch.models import training  # noqa: E402
 from tpu_network_operator_torch.models.checkpoint import (  # noqa: E402
@@ -132,6 +155,38 @@ CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 1024
 # adamw8bit run of the same model
 MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_A8_STEPS = 4, 2048, 4, 2
 SCRATCH = Path(__file__).resolve().parent / ".chip_smoke_tmp"
+# the import phases: Llama-3.2-1B's published config.json
+# (meta-llama/Llama-3.2-1B: tied embeddings, llama3 rope scaling), and
+# MoEConfig.small's widths as a Mixtral config.json (Mixtral-8x7B's
+# rope_theta, router_aux_loss_coef and null sliding_window); the weights
+# are seeded random bf16, written as HF checkpoints by this script
+LLAMA32_1B_CONFIG = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 2048, "intermediate_size": 8192,
+    "num_hidden_layers": 16, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 64, "hidden_act": "silu",
+    "max_position_embeddings": 131072, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "tie_word_embeddings": True,
+    "rope_scaling": {"rope_type": "llama3", "factor": 32.0,
+                     "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192},
+    "attention_bias": False, "mlp_bias": False, "torch_dtype": "bfloat16",
+    "bos_token_id": 128000, "eos_token_id": 128001,
+}
+MIXTRAL_SMALL_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "model_type": "mixtral",
+    "vocab_size": 32000, "hidden_size": 2048, "intermediate_size": 5632,
+    "num_hidden_layers": 16, "num_attention_heads": 16,
+    "num_key_value_heads": 8, "num_local_experts": 8,
+    "num_experts_per_tok": 2, "hidden_act": "silu",
+    "max_position_embeddings": 32768, "rms_norm_eps": 1e-5,
+    "rope_theta": 1e6, "sliding_window": None,
+    "router_aux_loss_coef": 0.02, "tie_word_embeddings": False,
+    "torch_dtype": "bfloat16",
+}
+# convert -> train: 2 layers at full width (a full-depth step-0 save would
+# write over 10 GB), 3 steps of A8_BATCH x A8_SEQ
+CONVERT_LAYERS, CONVERT_STEPS = 2, 3
 
 # the designs of the kernels redesigned for Hopper
 DESIGN = {
@@ -1572,6 +1627,441 @@ def phase_checkpoint():
     torch.cuda.empty_cache()
 
 
+# -- HF import, convert -> train, and the ffn_offload policy -----------------
+
+
+def kernel_launches_of(run) -> tuple:
+    """``run()``'s result and the kernel launches it made (the counts set
+    to 0 just before it and read just after it)."""
+    _kernels.reset_launches()
+    torch.cuda.synchronize()
+    out = run()
+    torch.cuda.synchronize()
+    return out, dict(_kernels.LAUNCHES)
+
+
+def hf_tensors(params, family: str, tied: bool) -> dict:
+    """HF state-dict names -> tensors ([out, in] views of the port's
+    [in, out] leaves) of a port parameter tree, in the order a checkpoint
+    lists them: the inverse of ``convert.from_hf_llama`` /
+    ``from_hf_mixtral``."""
+    lay = params["layers"]
+    out = {"model.embed_tokens.weight": params["embed"]}
+    proj = {"self_attn.q_proj": "wq", "self_attn.k_proj": "wk",
+            "self_attn.v_proj": "wv", "self_attn.o_proj": "wo"}
+    if family == "llama":
+        proj.update({"mlp.gate_proj": "w_gate", "mlp.up_proj": "w_up",
+                     "mlp.down_proj": "w_down"})
+    for i in range(lay["wq"].shape[0]):
+        pre = f"model.layers.{i}."
+        for hf_name, leaf in proj.items():
+            out[f"{pre}{hf_name}.weight"] = lay[leaf][i].t()
+        if family == "mixtral":
+            out[f"{pre}block_sparse_moe.gate.weight"] = \
+                lay["router"][i].t().bfloat16()
+            for e in range(lay["w_gate"].shape[1]):
+                for w, leaf in (("w1", "w_gate"), ("w3", "w_up"),
+                                ("w2", "w_down")):
+                    out[f"{pre}block_sparse_moe.experts.{e}.{w}.weight"] = \
+                        lay[leaf][i, e].t()
+        out[f"{pre}input_layernorm.weight"] = lay["ln_attn"][i]
+        out[f"{pre}post_attention_layernorm.weight"] = lay["ln_mlp"][i]
+    out["model.norm.weight"] = params["ln_final"]
+    if not tied:
+        out["lm_head.weight"] = params["lm_head"].t()
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """One ``.safetensors`` file, written by hand from the format: an
+    8-byte little-endian header length, the JSON header (dtype, shape and
+    byte range of each tensor), then the tensors' bytes.  Returns the
+    bytes written."""
+    names = {torch.bfloat16: "BF16", torch.float16: "F16",
+             torch.float32: "F32"}
+    header, off = {"__metadata__": {"format": "pt"}}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header, separators=(",", ":")).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little") + h)
+        for t in tensors.values():
+            f.write(t.contiguous().cpu().view(torch.uint8).numpy().data)
+    return 8 + len(h) + off
+
+
+def write_hf_checkpoint(directory: Path, config: dict, tensors: dict,
+                        shards: int) -> int:
+    """An HF checkpoint directory: ``config.json``, the tensors in
+    ``shards`` safetensors files (split in order) and the index that maps
+    each name to its file.  Returns the bytes of the shards."""
+    directory.mkdir(parents=True)
+    (directory / "config.json").write_text(json.dumps(config, indent=2))
+    names = list(tensors)
+    per = -(-len(names) // shards)
+    weight_map, total = {}, 0
+    for s in range(shards):
+        fname = f"model-{s + 1:05d}-of-{shards:05d}.safetensors"
+        part = names[s * per:(s + 1) * per]
+        total += write_safetensors(directory / fname,
+                                   {n: tensors[n] for n in part})
+        weight_map.update(dict.fromkeys(part, fname))
+    (directory / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    return total
+
+
+def random_norm_scales(params, gen) -> None:
+    """Norm scales 1 + 0.1 N(0, 1) in place of init's ones, so the import
+    check sees distinct values in every leaf."""
+    def draw(t):
+        return (1 + 0.1 * torch.randn(t.shape, device="cuda",
+                                      generator=gen)).to(t.dtype)
+
+    for k in ("ln_attn", "ln_mlp"):
+        params["layers"][k] = draw(params["layers"][k])
+    params["ln_final"] = draw(params["ln_final"])
+
+
+def source_params(cfg_json: dict, seed: int):
+    """(config, parameters) of an HF config.json with seeded random bf16
+    weights on the card, in the port's layout: the tensors an HF
+    checkpoint is then written from.  A tied config's head is the
+    embedding's transpose; the Mixtral router holds bf16 values, as
+    Mixtral checkpoints store it."""
+    from tpu_network_operator_torch.models import moe
+
+    hf = convert.hf_config(cfg_json)
+    gen = torch.Generator("cuda").manual_seed(seed)
+    if hf.model_type == "llama":
+        cfg = convert.cfg_from_hf(hf)
+        params = init_params(cfg, gen, "cuda")
+    else:
+        cfg = convert.moe_cfg_from_hf(hf)
+        params = moe.init_params(cfg, gen, "cuda")
+        params["layers"]["router"] = \
+            params["layers"]["router"].bfloat16().float()
+    random_norm_scales(params, gen)
+    if hf.tie_word_embeddings:
+        params["lm_head"] = params["embed"].t().contiguous()
+    return cfg, params
+
+
+def leaves_equal(params, ref) -> dict:
+    """Per leaf name, whether ``params`` holds ``ref``'s shape, dtype and
+    bits."""
+    return {name: a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(bits(a), bits(b)))
+            for name, a, b in zip(_leaf_names(ref),
+                                  training.tree_leaves(params),
+                                  training.tree_leaves(ref))}
+
+
+def phase_import_llama() -> dict:
+    """Llama-3.2-1B's published config at full width and depth, seeded
+    random bf16 weights written as a 2-shard HF checkpoint, imported onto
+    the card: every leaf the source's bits, the tied head a tensor of its
+    own; greedy generate from the import and from the source gives the
+    same tokens; 2 adamw8bit steps train the import."""
+    t_phase = time.perf_counter()
+    cfg, src = source_params(LLAMA32_1B_CONFIG, SEED + 20)
+    n = cfg.layers
+    SCRATCH.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(
+            tmp / "hf", LLAMA32_1B_CONFIG, hf_tensors(src, "llama", True), 2)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params, icfg = convert.load_hf_checkpoint(str(tmp / "hf"),
+                                                   device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = leaves_equal(params, src)
+    check(icfg == cfg and icfg.rope_scaling_dict["factor"] == 32.0,
+          f"imported config {icfg}")
+    check(all(same.values()), f"imported leaves differ from the source: "
+          f"{[k for k, v in same.items() if not v]}")
+    shared = params["lm_head"].untyped_storage().data_ptr() == \
+        params["embed"].untyped_storage().data_ptr()
+    check(not shared, "the tied lm_head shares storage with embed")
+
+    prompt = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               SEED + 21))
+    ref = generate(src, prompt, cfg, NEW_TOKENS)
+    del src
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out, launches = kernel_launches_of(
+        lambda: generate(params, prompt, icfg, NEW_TOKENS))
+    gen_s = time.perf_counter() - t0
+    want = {"flash_fwd": n, "rms_norm_fwd": (2 * n + 1) * NEW_TOKENS,
+            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
+            "adam8_fused": 0}
+    check(launches == want, f"import generate launches {launches}, "
+          f"expected {want}")
+    check(bool(torch.equal(out, ref)),
+          "generate from the import differs from generate from the source")
+
+    tcfg = dataclasses.replace(icfg, remat=True, remat_policy="ffn",
+                               xent_chunk=A8_CHUNK)
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    step, _, _ = make_train_step(tcfg, optimizer=opt, device="cuda")
+    opt_state = opt.init(params)
+    tokens = torch.randint(0, cfg.vocab_size, (A8_BATCH, A8_SEQ + 1),
+                           device="cuda",
+                           generator=torch.Generator("cuda").manual_seed(
+                               SEED + 22))
+
+    def train2():
+        nonlocal params, opt_state
+        losses = []
+        for _ in range(2):
+            params, opt_state, loss = step(params, opt_state, tokens)
+            losses.append(loss.item())
+        return losses
+
+    losses, train_launches = kernel_launches_of(train2)
+    want = {k: 2 * v for k, v in remat_launches(n).items()}
+    want["adam8_fused"] = 2
+    check(train_launches == want, f"import train launches {train_launches}, "
+          f"expected {want}")
+    check(all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
+          f"the imported model's loss did not fall: {losses}")
+    untied = not torch.equal(params["lm_head"], params["embed"].t())
+    check(untied, "lm_head still equals embed.T after 2 steps")
+    emit({"phase": "import_llama",
+          "seconds": time.perf_counter() - t_phase,
+          "config": "meta-llama/Llama-3.2-1B "
+          "config.json (tied embeddings, llama3 rope scaling, factor 32)",
+          "layers": n, "params": cfg.num_params() - cfg.vocab_size
+          * cfg.hidden, "checkpoint_bytes": nbytes, "shards": 2,
+          "write_s": write_s, "load_s": load_s,
+          "load_gb_per_s": nbytes / load_s / 1e9,
+          "leaves_bit_identical": f"{sum(same.values())} of {len(same)}",
+          "lm_head_shares_embed_storage": shared,
+          "generate": {"batch": BATCH, "prompt": PROMPT,
+                       "new_tokens": NEW_TOKENS, "seconds": gen_s,
+                       "tokens_per_s": BATCH * NEW_TOKENS / gen_s,
+                       "same_tokens_as_source": True, "launches": launches},
+          "train": {"batch": A8_BATCH, "seq": A8_SEQ,
+                    "xent_chunk": A8_CHUNK, "remat_policy": "ffn",
+                    "optimizer": f"adamw8bit({A8_LR}, {A8_WD})",
+                    "losses": losses, "launches": train_launches,
+                    "lm_head_differs_from_embed_t": untied}})
+    del params, opt_state, step, out, ref
+    torch.cuda.empty_cache()
+    return {"generate": launches, "train": train_launches}
+
+
+def run_cli(argv) -> dict:
+    """The workload CLI's ``main`` in this process; its JSON line."""
+    from tpu_network_operator_torch.workload import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"workload {argv[0]} returned {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_convert_train(family: str) -> dict:
+    """``workload convert --optimizer adam8bit`` of a 2-layer HF checkpoint
+    at full width (Llama-3.2-1B's config, or MoEConfig.small's widths as
+    a Mixtral config), then ``workload train --checkpoint-dir`` with no
+    ``--model``: it resumes at step 0 as the sidecar's family, its first
+    loss is ``loss_fn`` of the imported weights on its first batch, and
+    the loss falls."""
+    from tpu_network_operator_torch.models import moe
+
+    base = LLAMA32_1B_CONFIG if family == "llama" else MIXTRAL_SMALL_CONFIG
+    t_phase = time.perf_counter()
+    cfg_json = {**base, "num_hidden_layers": CONVERT_LAYERS}
+    cfg, src = source_params(cfg_json, SEED + 23)
+    want_family = "llama" if family == "llama" else "moe"
+    SCRATCH.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        write_hf_checkpoint(tmp / "hf", cfg_json,
+                            hf_tensors(src, family,
+                                       cfg_json["tie_word_embeddings"]), 2)
+        del src
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        conv = run_cli(["convert", "--hf-path", str(tmp / "hf"),
+                        "--checkpoint-dir", str(tmp / "ckpt"),
+                        "--optimizer", "adam8bit", "--device", "cuda"])
+        convert_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out, launches = kernel_launches_of(lambda: run_cli(
+            ["train", "--checkpoint-dir", str(tmp / "ckpt"),
+             "--steps", str(CONVERT_STEPS), "--batch", str(A8_BATCH),
+             "--seq-len", str(A8_SEQ), "--optimizer", "adam8bit",
+             "--device", "cuda"]))
+        train_s = time.perf_counter() - t0
+        # the imported weights' loss on train's first batch (its fixed
+        # synthetic batch, drawn as train draws it), computed as the train
+        # step computes it: grad mode, the sidecar's remat policy
+        params, icfg = convert.load_hf_checkpoint(str(tmp / "hf"),
+                                                   device="cuda")
+        tokens = torch.randint(0, icfg.vocab_size, (A8_BATCH, A8_SEQ + 1),
+                               device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(
+                                   1))
+        for p in training.tree_leaves(params):
+            p.requires_grad_(True)
+        lossf = loss_fn if family == "llama" else moe.loss_fn
+        ref_loss = lossf(params, tokens, icfg).item()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(conv["family"] == want_family,
+          f"convert says family {conv['family']}")
+    check(out["resumed_from"] == 0, f"train resumed from {out}")
+    check(out["metric"].startswith(want_family + ":"),
+          f"train ran {out['metric']}, not the sidecar's {want_family}")
+    check(out["first_loss"] == ref_loss,
+          f"train's first loss {out['first_loss']} != the imported "
+          f"weights' loss {ref_loss}")
+    check(math.isfinite(out["final_loss"])
+          and out["final_loss"] < out["first_loss"],
+          f"the loss did not fall: {out}")
+    check(all(launches[k] > 0 for k in launches),
+          f"convert -> train launched no {launches}")
+    emit({"phase": f"convert_train_{family}",
+          "seconds": time.perf_counter() - t_phase, "layers": icfg.layers,
+          "params": icfg.num_params(), "convert": conv,
+          "convert_s": convert_s, "train": out, "train_s": train_s,
+          "imported_loss": ref_loss, "launches": launches})
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def pinned_copy_gb_per_s(nbytes: int = 1 << 30) -> dict:
+    """Device-to-pinned-host and back over the host link: GB/s of one
+    ``nbytes`` copy, median of 5, by CUDA events."""
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    out = {}
+    for name, dst, src in (("device_to_host", host, dev),
+                           ("host_to_device", dev, host)):
+        samples = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            dst.copy_(src, non_blocking=True)
+            end.record()
+            end.synchronize()
+            samples.append(nbytes / (start.elapsed_time(end) / 1e3) / 1e9)
+        out[name] = statistics.median(samples)
+    del host, dev
+    return out
+
+
+def host_link_profile(run) -> dict:
+    """One profiled ``run()``: its kernels' device ms (copies apart) and
+    its copies over the host link, count and device ms by direction."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return {
+        "kernel_ms": sum(e.self_device_time_total for e in events
+                         if not e.key.startswith("Memcpy")) / 1e3,
+        "host_link_copies": {
+            e.key: {"calls": e.count, "ms": e.self_device_time_total / 1e3}
+            for e in events if e.key.startswith("Memcpy")
+            and "Pinned" in e.key},
+    }
+
+
+def phase_remat_ffn_offload() -> dict:
+    """The llama3-1b+ffn+adam8 rung under "ffn" and "ffn_offload": one step
+    from the same parameters, state and batch must give the same loss and
+    the same bits in every updated leaf and moment; then each policy's
+    step timed (warm-up + 3, in the order ffn, offload, offload, ffn), its
+    peak memory, one profiled step's copies over the host link, and a
+    pinned-copy bandwidth probe."""
+    t_phase = time.perf_counter()
+    cfg, step_ffn, params, opt_state, tokens = adam8_cell()
+    ocfg = dataclasses.replace(cfg, remat_policy="ffn_offload")
+    opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+    step_off, _, _ = make_train_step(ocfg, optimizer=opt, device="cuda")
+    params2 = training.tree_map(lambda t: t.detach().clone(), params)
+    state2 = copy.deepcopy(opt_state)
+    params, opt_state, loss = step_ffn(params, opt_state, tokens)
+    (params2, state2, loss2), launches = kernel_launches_of(
+        lambda: step_off(params2, state2, tokens))
+    same = leaves_equal(params2, params)
+    same_state = all(torch.equal(bits(a), bits(b)) for a, b in zip(
+        flat_state({}, state2).values(), flat_state({}, opt_state).values()))
+    check(bool(torch.equal(bits(loss), bits(loss2))),
+          f"ffn_offload loss {loss2.item()} != ffn's {loss.item()}")
+    check(all(same.values()) and same_state,
+          f"ffn_offload's step differs from ffn's: "
+          f"{[k for k, v in same.items() if not v]}, state {same_state}")
+    want = {**remat_launches(cfg.layers), "adam8_fused": 1}
+    check(launches == want, f"ffn_offload launches {launches}, "
+          f"expected {want}")
+    del params2, state2
+    torch.cuda.empty_cache()
+
+    runs = {}
+    for policy, step in (("ffn", step_ffn), ("ffn_offload", step_off),
+                         ("ffn_offload", step_off), ("ffn", step_ffn)):
+        torch.cuda.reset_peak_memory_stats()
+        params, opt_state, losses, step_s, _, _ = run_steps(
+            step, params, opt_state, tokens, TRAIN_STEPS)
+        runs.setdefault(policy, []).append(
+            {"step_s": step_s, "losses": losses,
+             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    profiles = {}
+    for policy, step in (("ffn", step_ffn), ("ffn_offload", step_off)):
+        def run():
+            nonlocal params, opt_state
+            params, opt_state, _ = step(params, opt_state, tokens)
+
+        profiles[policy] = host_link_profile(run)
+    probe = pinned_copy_gb_per_s()
+    # each way a step: resid_mid [B, S, h], ffn_gate and ffn_up [B, S, ffn]
+    # in bf16, every layer
+    per_layer = A8_BATCH * A8_SEQ * (cfg.hidden + 2 * cfg.ffn) * 2
+    med = {p: statistics.median(s for r in rs for s in r["step_s"])
+           for p, rs in runs.items()}
+    emit({"phase": "remat_ffn_offload",
+          "seconds": time.perf_counter() - t_phase, "preset": "llama3-1b",
+          "batch": A8_BATCH, "seq": A8_SEQ, "xent_chunk": A8_CHUNK,
+          "optimizer": f"adamw8bit({A8_LR}, {A8_WD})",
+          "same_bits": {"loss": True, "leaves": f"{sum(same.values())} of "
+                        f"{len(same)}", "optimizer_state": same_state},
+          "launches": launches, "runs": runs, "median_step_s": med,
+          "offload_minus_ffn_s": med["ffn_offload"] - med["ffn"],
+          "profiles": profiles,
+          "host_link_bytes_each_way": cfg.layers * per_layer,
+          "host_link_bytes_per_layer": per_layer,
+          "pinned_copy_gb_per_s": probe,
+          "min_ms_each_way_at_probe_rate": {
+              d: cfg.layers * per_layer / (gbs * 1e9) * 1e3
+              for d, gbs in probe.items()}})
+    del params, opt_state, step_ffn, step_off
+    torch.cuda.empty_cache()
+    return launches
+
+
 def _leaf_names(tree, prefix=""):
     """Key paths in training.tree_leaves order."""
     for k, v in tree.items():
@@ -1690,7 +2180,7 @@ def flash_bwd_entries(gen, b, s, h, hkv, d, bw, peak):
 
 
 def phase_table(name: str, launches: dict, train_launches: dict,
-                adam8: dict, moe_runs: dict):
+                adam8: dict, moe_runs: dict, more_launches: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -1855,6 +2345,11 @@ def phase_table(name: str, launches: dict, train_launches: dict,
             "ms": moe_runs["adam8_in_step_ms"],
             "bound_ms": moe_runs["adam8_bound_ms"], "bound_by": "bytes"},
     })
+    # each kernel's launches in the import, convert -> train and offload
+    # paths, each read just after its own run
+    for row in rows:
+        row["launches_in"] = {path: counts[row["name"]]
+                              for path, counts in more_launches.items()}
     emit({"kernels": rows})
 
 
@@ -1888,7 +2383,16 @@ def main(argv=None) -> int:
     phase_checkpoint()
     moe_runs = phase_train_moe(name)
     phase_train_moe_card_vs_cpu()
-    phase_table(name, launches, train_launches, adam8, moe_runs)
+    imported = phase_import_llama()
+    more_launches = {
+        "import_llama_generate": imported["generate"],
+        "import_llama_train_2_steps": imported["train"],
+        "convert_train_llama_3_steps": phase_convert_train("llama"),
+        "convert_train_mixtral_3_steps": phase_convert_train("mixtral"),
+        "remat_ffn_offload_step": phase_remat_ffn_offload(),
+    }
+    phase_table(name, launches, train_launches, adam8, moe_runs,
+                more_launches)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
+"""The port stands alone: it imports neither JAX nor the JAX package, nor
+``transformers`` or ``safetensors`` (the card's machine has neither), and
 its entry points refuse to run on the CPU unless asked to."""
 
 import json
@@ -11,6 +12,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGE = "tpu_network_operator_torch"
+FORBIDDEN = ("jax", "tpu_network_operator", "transformers", "safetensors")
 
 
 def port_modules():
@@ -29,14 +31,14 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert f"{PACKAGE}.ops.flash_attention" in mods
     assert f"{PACKAGE}.workload.__main__" in mods
     assert {f"{PACKAGE}.data", f"{PACKAGE}.models.optim8bit",
-            f"{PACKAGE}.models.checkpoint"} <= set(mods)
+            f"{PACKAGE}.models.checkpoint",
+            f"{PACKAGE}.models.convert"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(n for n in sys.modules if n == 'jax'\n"
-        "             or n.startswith('jax.') or n == 'tpu_network_operator'\n"
-        "             or n.startswith('tpu_network_operator.'))\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
         "print(json.dumps(bad))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -47,6 +49,7 @@ def test_port_imports_no_jax_and_no_reference_package():
 
 def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_network_operator_torch import resolve_device
+    from tpu_network_operator_torch.models import convert as tconvert
     from tpu_network_operator_torch.models import generate as tgen
     from tpu_network_operator_torch.models import llama as tllama
     from tpu_network_operator_torch.models import optim8bit as topt
@@ -70,6 +73,10 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         cli.main(["train", "--preset", "tiny", "--optimizer", "adam8bit"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tllama.make_train_step(cfg, optimizer="adam8bit")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["convert", "--hf-path", "hf", "--checkpoint-dir", "ckpt"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tconvert.load_hf_checkpoint("hf")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         topt.adam8_state_from_jax(None)
     assert resolve_device("cpu") == torch.device("cpu")

@@ -341,6 +341,58 @@ def test_train_step_on_card_matches_cpu(cuda):
         assert _rel(g.cpu(), r) < 3e-2
 
 
+def _ffn_half_nodes(loss):
+    """The backward nodes of the dense layers' FFN halves in ``loss``'s
+    graph (``training._SwiGLUResidual``)."""
+    seen, stack, out = set(), [loss.grad_fn], []
+    while stack:
+        node = stack.pop()
+        if node is None or node in seen:
+            continue
+        seen.add(node)
+        if type(node).__name__ == "_SwiGLUResidualBackward":
+            out.append(node)
+        stack.extend(n for n, _ in node.next_functions)
+    return out
+
+
+def test_ffn_offload_on_card_is_ffn_bits_from_pinned_memory(cuda):
+    # "ffn_offload" keeps "ffn"'s save set (resid_mid, ffn_gate, ffn_up)
+    # in pinned host memory and moves it back for the backward: the bytes
+    # are unchanged, so the loss and every gradient are "ffn"'s bits
+    cfg = dataclasses.replace(
+        tllama.LlamaConfig(vocab_size=512, hidden=256, layers=2, heads=4,
+                           kv_heads=2, ffn=512, max_seq=256),
+        remat=True, xent_chunk=64)
+    params = tllama.init_params(cfg, cuda, "cuda")
+    tokens = torch.randint(0, 512, (2, 129), device="cuda", generator=cuda)
+    leaves = [t.requires_grad_() for t in tllama.training.tree_leaves(params)]
+    out = {}
+    for policy in ("ffn", "ffn_offload"):
+        loss = tllama.loss_fn(params, tokens,
+                              dataclasses.replace(cfg, remat_policy=policy))
+        nodes = _ffn_half_nodes(loss)
+        assert len(nodes) == cfg.layers
+        for node in nodes:
+            if policy == "ffn":
+                assert node.stash is None
+                continue
+            host = node.stash.host[node.key]
+            assert [tuple(h.shape) for h in host] == [
+                (2, 128, cfg.hidden), (2, 128, cfg.ffn), (2, 128, cfg.ffn)]
+            assert all(h.device.type == "cpu" and h.is_pinned()
+                       for h in host)
+            # on the device it keeps only its weights (ln and the three
+            # projections)
+            assert len(node.saved_tensors) == 4
+            assert all(t.dim() <= 2 for t in node.saved_tensors)
+        out[policy] = (loss.detach(), torch.autograd.grad(loss, leaves))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(out["ffn"][0]), _bits(out["ffn_offload"][0]))
+    for g, r in zip(out["ffn_offload"][1], out["ffn"][1]):
+        assert torch.equal(_bits(g), _bits(r))
+
+
 # -- the Hopper flash kernels: edge cases --------------------------------------
 
 

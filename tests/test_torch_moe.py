@@ -333,6 +333,21 @@ def test_grads_match_jax_under_each_remat_policy(jax_tiny, policy):
         assert _rel(g, jg) < 1e-5, (path, _rel(g, jg))
 
 
+def test_grads_match_jax_ffn_offload(jax_tiny):
+    # the reference's "ffn_offload" off the TPU keeps "ffn"'s save set in
+    # device memory, and its MoE layer tags no name, so it saves nothing;
+    # the port's saves nothing either: f32 summation order only, 1e-5
+    jcfg, tree, tokens, _, _ = jax_tiny
+    jcfg = dataclasses.replace(jcfg, remat=True, remat_policy="ffn_offload")
+    loss_j, grads_j = jax.jit(jax.value_and_grad(jmoe.loss_fn),
+                              static_argnums=2)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(tokens), jcfg)
+    params, loss_t, grads_t = _loss_and_grads(torch_cfg(jcfg), tree, tokens)
+    assert abs(loss_t - float(loss_j)) <= 1e-5 * float(loss_j)
+    for path, jg in jax.tree_util.tree_leaves_with_path(grads_j):
+        assert _rel(grads_t[id(_leaf(params, path))], jg) < 1e-5, path
+
+
 def test_grads_match_jax_flash_route(jax_kernels):
     # both models run flash attention and the fused RMSNorm forward and
     # backward (JAX: Pallas in interpret mode; port: the plain versions),

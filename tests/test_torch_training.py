@@ -169,7 +169,8 @@ def _loss_and_grads(cfg, tree, tokens):
     return loss.item(), torch.autograd.grad(loss, leaves)
 
 
-@pytest.mark.parametrize("policy", ["dots", "ffn", "ffn_lite", "full"])
+@pytest.mark.parametrize("policy", ["dots", "ffn", "ffn_lite", "ffn_offload",
+                                    "full"])
 def test_remat_policies_match_no_remat(policy):
     # eager recompute replays the same ops on the same inputs in the same
     # order, so every policy gives remat=False's loss and gradients; in
@@ -190,6 +191,31 @@ def test_remat_policies_match_no_remat(policy):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-6)
 
 
+def test_ffn_offload_loss_and_grads_match_jax():
+    # the reference's "ffn_offload" off the TPU keeps "ffn"'s save set in
+    # device memory (save_only_these_names); the port's keeps it on the
+    # CPU as well.  f32 at the tiny config, plain attention: summation
+    # order only, loss 1e-5, each gradient 1e-5 in relative norm
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype=jnp.float32,
+                               remat=True, remat_policy="ffn_offload")
+    tree = jax.tree.map(np.asarray, jllama.init_params(jax.random.key(6),
+                                                       jcfg))
+    tokens = np.random.default_rng(7).integers(0, 256, (2, 17),
+                                               dtype=np.int32)
+    loss_j, grads_j = jax.jit(jax.value_and_grad(jllama.loss_fn),
+                              static_argnums=2)(
+        jax.tree.map(jnp.asarray, tree), jnp.asarray(tokens), jcfg)
+    params = tllama.params_from_jax(tree, "cpu")
+    leaves = [t.requires_grad_() for t in ttraining.tree_leaves(params)]
+    loss_t = tllama.loss_fn(params, torch.from_numpy(tokens),
+                            torch_cfg(jcfg))
+    grads_t = dict(zip(map(id, leaves), torch.autograd.grad(loss_t, leaves)))
+    assert abs(loss_t.item() - float(loss_j)) < 1e-5 * float(loss_j)
+    for leaf, jg, name in _by_path(params, grads_j):
+        assert _rel(grads_t[id(leaf)], jg) < 1e-5, (name, _rel(
+            grads_t[id(leaf)], jg))
+
+
 class _CountOps(TorchDispatchMode):
     def __init__(self, ops):
         super().__init__()
@@ -203,7 +229,8 @@ class _CountOps(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("policy,mm_rerun", [
-    ("full", 6), ("dots", 0), ("ffn", 3), ("ffn_lite", 4)])
+    ("full", 6), ("dots", 0), ("ffn", 3), ("ffn_lite", 4),
+    ("ffn_offload", 3)])
 def test_remat_policies_save_what_they_name(policy, mm_rerun):
     # what the backward recomputes per layer.  The checkpoint stops
     # replaying once it has every tensor the backward needs, so the last
@@ -211,7 +238,8 @@ def test_remat_policies_save_what_they_name(policy, mm_rerun):
     # "full" reruns the other 6; "dots" takes every matmul output from its
     # cache; "ffn" saves resid_mid, ffn_gate and ffn_up, so only the
     # attention half's q, k and v projections rerun, as under XLA's
-    # save_only_these_names; "ffn_lite" recomputes ffn_up as well
+    # save_only_these_names; "ffn_lite" recomputes ffn_up as well;
+    # "ffn_offload" saves what "ffn" saves (on the CPU, where it stays)
     mm = torch.ops.aten.mm.default
     cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), remat=True,
                               remat_policy=policy)
@@ -228,13 +256,12 @@ def test_remat_policies_save_what_they_name(policy, mm_rerun):
 
 
 def test_remat_offload_and_unknown_policies_raise():
+    # "ffn_offload" is ported (test_remat_policies_match_no_remat); an
+    # unknown name still raises
     base = dataclasses.replace(tllama.LlamaConfig.tiny(), remat=True)
     params = tllama.init_params(base, torch.Generator().manual_seed(0),
                                 "cpu")
     tokens = torch.randint(0, 256, (1, 9))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tllama.loss_fn(params, tokens,
-                       dataclasses.replace(base, remat_policy="ffn_offload"))
     with pytest.raises(ValueError, match="unknown remat_policy"):
         tllama.loss_fn(params, tokens,
                        dataclasses.replace(base, remat_policy="dotz"))
@@ -343,6 +370,21 @@ def test_workload_train_cpu_prints_json(capsys):
     assert out["unit"] == "tokens/sec/chip" and out["value"] > 0
     assert out["steps"] == 2 and np.isfinite(out["final_loss"])
     assert out["mesh"] == {"devices": 1, "device": "cpu"}
+
+
+@pytest.mark.parametrize("cmd", ["generate", "train"])
+def test_workload_profile_writes_a_chrome_trace(capsys, tmp_path, cmd):
+    from tpu_network_operator_torch.workload import cli
+
+    argv = {"generate": ["--batch", "2", "--prompt-len", "4",
+                         "--max-new-tokens", "4"],
+            "train": ["--steps", "2", "--batch", "2", "--seq-len", "16"]}
+    assert cli.main([cmd, "--device", "cpu", "--preset", "tiny",
+                     "--profile", str(tmp_path), *argv[cmd]]) == 0
+    json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    trace = json.loads((tmp_path / f"{cmd}.trace.json").read_text())
+    names = {e.get("name") for e in trace["traceEvents"]}
+    assert "aten::mm" in names or "aten::addmm" in names
 
 
 def test_train_entry_points_raise_without_cuda(monkeypatch):

@@ -45,7 +45,8 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
-    # training.remat's policy names: "dots", "ffn", "ffn_lite", "full"
+    # training.remat's policy names: "dots", "ffn", "ffn_lite",
+    # "ffn_offload", "full"
     remat_policy: str = "dots"
     # >0: training cross entropy in sequence chunks of this size, so the
     # [B, S, vocab] logits are never held at once
@@ -248,18 +249,21 @@ def _remat_block(cfg: LlamaConfig, cos, sin):
     block's input, and the FFN half saves its input (``resid_mid``) and
     ``ffn_gate`` (and ``ffn_up``), so the backward reruns only the
     attention half's q, k and v projections (and under "ffn_lite" the up
-    projection), as XLA's ``save_only_these_names`` does."""
+    projection), as XLA's ``save_only_these_names`` does.  "ffn_offload"
+    saves "ffn"'s tensors in one :class:`.training.HostStash` for the
+    pass."""
     policy = cfg.remat_policy
     if policy not in training.SAVED_FFN:
         return training.remat(functools.partial(_layer, cfg, cos, sin),
                               policy)
     attn = training.remat(functools.partial(_attn_half, cfg, cos, sin),
                           "full")
+    stash = training.HostStash() if policy == "ffn_offload" else None
 
     def block(x, lp):
         return training.swiglu_residual(
             attn(x, lp), lp["ln_mlp"], lp["w_gate"], lp["w_up"],
-            lp["w_down"], cfg.rms_eps, policy)
+            lp["w_down"], cfg.rms_eps, policy, stash)
 
     return block
 

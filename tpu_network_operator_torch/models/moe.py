@@ -53,7 +53,8 @@ class MoEConfig:
     dtype: torch.dtype = torch.bfloat16
     remat: bool = True
     # training.remat's policy names; the MoE layer tags no tensor, so
-    # "ffn" and "ffn_lite" save what "full" saves, as in the reference
+    # "ffn", "ffn_lite" and "ffn_offload" save what "full" saves, as in
+    # the reference
     remat_policy: str = "dots"
     # >0: training cross entropy in sequence chunks of this size
     # (training.chunked_next_token_xent); 0 = full logits

@@ -24,8 +24,10 @@ from ..ops.norms import rms_norm
 REMAT_POLICIES = ("dots", "ffn", "ffn_lite", "ffn_offload", "full")
 # the FFN intermediates each named policy keeps beside the post-attention
 # residual (the tensors the reference tags in llama._layer):
-# "ffn_gate" is rms_norm(resid_mid) @ w_gate, "ffn_up" the same @ w_up
-SAVED_FFN = {"ffn": ("ffn_gate", "ffn_up"), "ffn_lite": ("ffn_gate",)}
+# "ffn_gate" is rms_norm(resid_mid) @ w_gate, "ffn_up" the same @ w_up;
+# "ffn_offload" keeps "ffn"'s set in pinned host memory (HostStash)
+SAVED_FFN = {"ffn": ("ffn_gate", "ffn_up"), "ffn_lite": ("ffn_gate",),
+             "ffn_offload": ("ffn_gate", "ffn_up")}
 _MATMULS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
             torch.ops.aten.addmm.default)
 
@@ -46,26 +48,20 @@ def remat(fn: Callable, policy: str) -> Callable:
 
     * ``full``: save nothing but the inputs, recompute the rest;
     * ``dots``: save every matmul output (``dots_saveable``);
-    * ``ffn`` / ``ffn_lite``: save the tensors ``fn`` tags with those
-      names, of which a whole function has none, so nothing is saved, as
-      under the reference's ``save_only_these_names`` for a layer that tags
-      nothing (the MoE layer).  The dense layer keeps its named tensors by
-      splitting itself at them (:func:`swiglu_residual`).
+    * ``ffn`` / ``ffn_lite`` / ``ffn_offload``: save the tensors ``fn``
+      tags with those names, of which a whole function has none, so
+      nothing is saved, as under the reference's ``save_only_these_names``
+      for a layer that tags nothing (the MoE layer).  The dense layer
+      keeps its named tensors by splitting itself at them
+      (:func:`swiglu_residual`).
 
-    The recompute replays ``fn`` up to the last tensor its backward needs.
-    ``ffn_offload`` (the ``ffn`` set kept in pinned host memory) is not
-    ported yet and raises."""
+    The recompute replays ``fn`` up to the last tensor its backward
+    needs."""
     if policy in ("full", *SAVED_FFN):
         context_fn = None
     elif policy == "dots":
         context_fn = functools.partial(create_selective_checkpoint_contexts,
                                        _save_ops(_MATMULS))
-    elif policy == "ffn_offload":
-        raise NotImplementedError(
-            "remat_policy 'ffn_offload' (saved FFN tensors offloaded to "
-            "pinned host memory) is not ported yet: see ROADMAP.md, queue "
-            "1 item 2"
-        )
     else:
         raise ValueError(
             f"unknown remat_policy {policy!r}; choose from {REMAT_POLICIES}"
@@ -80,29 +76,96 @@ def remat(fn: Callable, policy: str) -> Callable:
     return wrapped
 
 
+class HostStash:
+    """Activations kept in pinned host memory from a forward to its
+    backward: the "ffn_offload" policy's store, one per forward pass.
+
+    :meth:`put` copies a layer's tensors to pinned host buffers on a side
+    stream that first waits for the tensors' producers, so the copies
+    overlap the forward's later work; the device tensors are marked in use
+    by that stream, so their memory is not reused before the copy ends.
+    :meth:`take` returns a layer's tensors on the device and starts the
+    copy of the layer before it (the next one the backward asks for) on
+    the side stream, so the backward's own work hides it; the current
+    stream waits for a copy's event only where it reads the result.  The
+    bytes move unchanged, so the gradients are those of keeping the
+    tensors on the device."""
+
+    def __init__(self):
+        self.host = []              # per put(): the pinned copies
+        self.stream = None
+        self._fetched = {}          # key -> (device tensors, ready event)
+
+    def put(self, tensors) -> int:
+        """Copy ``tensors`` (CUDA) to pinned host memory; returns their
+        key, 0, 1, ... in the order of the calls."""
+        cur = torch.cuda.current_stream()
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(cur.device)
+        self.stream.wait_stream(cur)
+        host = []
+        with torch.cuda.stream(self.stream):
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                t.record_stream(self.stream)
+                host.append(h)
+        self.host.append(host)
+        return len(self.host) - 1
+
+    def _fetch(self, key: int):
+        cur = torch.cuda.current_stream()
+        # allocated on the current stream, which the copy waits for: the
+        # memory's earlier users have finished with it
+        outs = [torch.empty(h.shape, dtype=h.dtype, device=cur.device)
+                for h in self.host[key]]
+        self.stream.wait_stream(cur)
+        with torch.cuda.stream(self.stream):
+            for o, h in zip(outs, self.host[key]):
+                o.copy_(h, non_blocking=True)
+        return outs, self.stream.record_event()
+
+    def take(self, key: int):
+        """The tensors :meth:`put` stored under ``key``, on the device,
+        ready for the current stream."""
+        outs, ready = self._fetched.pop(key, None) or self._fetch(key)
+        if key > 0 and key - 1 not in self._fetched:
+            self._fetched[key - 1] = self._fetch(key - 1)
+        torch.cuda.current_stream().wait_event(ready)
+        return outs
+
+
 class _SwiGLUResidual(torch.autograd.Function):
     """x + (silu(gate) * up) @ w_down with y = rms_norm(x, ln), gate =
     y @ w_gate and up = y @ w_up, saving x, gate and (``save_up``) up: the
-    "ffn" / "ffn_lite" save set of the dense layer's FFN half.  The
-    backward recomputes y (the RMSNorm forward) and silu(gate) * up, and
-    under "ffn_lite" up, and reruns no other product: the gradient GEMMs
-    are the ones autograd runs, with the same operands in the same
-    layouts, so the gradients are remat=False's bits."""
+    "ffn" / "ffn_lite" save set of the dense layer's FFN half, which with
+    a ``stash`` (:class:`HostStash`, CUDA tensors) waits in pinned host
+    memory instead of on the device ("ffn_offload").  The backward
+    recomputes y (the RMSNorm forward) and silu(gate) * up, and under
+    "ffn_lite" up, and reruns no other product: the gradient GEMMs are the
+    ones autograd runs, with the same operands in the same layouts, so the
+    gradients are remat=False's bits."""
 
     @staticmethod
-    def forward(ctx, x, ln, w_gate, w_up, w_down, eps, save_up):
+    def forward(ctx, x, ln, w_gate, w_up, w_down, eps, save_up, stash):
         y = rms_norm(x, ln, eps)
         gate = y @ w_gate
         up = y @ w_up
         out = x + (torch.nn.functional.silu(gate) * up) @ w_down
-        ctx.save_for_backward(x, ln, w_gate, w_up, w_down, gate,
-                              up if save_up else None)
-        ctx.eps = eps
+        ctx.eps, ctx.stash = eps, stash
+        if stash is not None:
+            ctx.key = stash.put((x, gate, up))
+            ctx.save_for_backward(ln, w_gate, w_up, w_down)
+        else:
+            ctx.save_for_backward(ln, w_gate, w_up, w_down, x, gate,
+                                  up if save_up else None)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        x, ln, w_gate, w_up, w_down, gate, up = ctx.saved_tensors
+        ln, w_gate, w_up, w_down, *acts = ctx.saved_tensors
+        x, gate, up = (acts if ctx.stash is None
+                       else ctx.stash.take(ctx.key))
         with torch.enable_grad():
             xd, lnd = x.detach().requires_grad_(), ln.detach().requires_grad_()
             y = rms_norm(xd, lnd, ctx.eps)
@@ -120,17 +183,21 @@ class _SwiGLUResidual(torch.autograd.Function):
         dy = dgate2.mm(w_gate.t()) + dup2.mm(w_up.t())
         dx, dln = torch.autograd.grad(y, (xd, lnd), dy.view(y.shape))
         return (g + dx, dln, y2.t().mm(dgate2), y2.t().mm(dup2), dw_down,
-                None, None)
+                None, None, None)
 
 
 def swiglu_residual(x: torch.Tensor, ln: torch.Tensor, w_gate: torch.Tensor,
                     w_up: torch.Tensor, w_down: torch.Tensor, eps: float,
-                    policy: str) -> torch.Tensor:
+                    policy: str, stash: HostStash = None) -> torch.Tensor:
     """The dense layer's FFN half, x + SwiGLU(rms_norm(x, ln)), keeping
     :data:`SAVED_FFN` ``[policy]`` for its backward (see
-    :class:`_SwiGLUResidual`)."""
+    :class:`_SwiGLUResidual`): under "ffn_offload", in ``stash``'s pinned
+    host memory when ``x`` is a CUDA tensor, and on the device as "ffn"
+    otherwise (the reference keeps them in device memory off the TPU)."""
+    offload = policy == "ffn_offload" and x.is_cuda
     return _SwiGLUResidual.apply(x, ln, w_gate, w_up, w_down, eps,
-                                 "ffn_up" in SAVED_FFN[policy])
+                                 "ffn_up" in SAVED_FFN[policy],
+                                 stash if offload else None)
 
 
 # -- loss ---------------------------------------------------------------------

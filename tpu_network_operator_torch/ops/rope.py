@@ -3,8 +3,8 @@
 Counterpart of ``tpu_network_operator/ops/rope.py``.  Rotation pairs are
 the split halves ``(x[:d/2], x[d/2:])`` (GPT-NeoX style), the layout the
 reference keeps; a checkpoint trained with Llama's interleaved pairs loads
-by permuting the wq/wk output columns once at import, which comes with the
-checkpoint-import slice.
+by permuting the wq/wk output columns once (:func:`convert_interleaved_qk`).
+Hugging Face checkpoints already use the split-half layout.
 """
 
 from __future__ import annotations
@@ -63,6 +63,36 @@ def _rotate(x: torch.Tensor, c: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     y1 = x1 * c - x2 * s
     y2 = x1 * s + x2 * c
     return torch.cat([y1, y2], dim=-1).to(x.dtype)
+
+
+def rotate_interleaved(x: torch.Tensor, c: torch.Tensor,
+                       s: torch.Tensor) -> torch.Tensor:
+    """Interleaved-pair rotation (x0, x1), (x2, x3), ... as the original
+    Llama code rotates: the reference for :func:`convert_interleaved_qk`'s
+    equivalence, not used on the model's path."""
+    x1 = x[..., 0::2]
+    x2 = x[..., 1::2]
+    y1 = x1 * c - x2 * s
+    y2 = x1 * s + x2 * c
+    return torch.stack([y1, y2], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+def deinterleave_perm(head_dim: int) -> torch.Tensor:
+    """The channel permutation from interleaved pairs to split halves:
+    [0, 2, 4, ..., 1, 3, 5, ...]."""
+    return torch.cat([torch.arange(0, head_dim, 2),
+                      torch.arange(1, head_dim, 2)])
+
+
+def convert_interleaved_qk(w: torch.Tensor, head_dim: int) -> torch.Tensor:
+    """A wq / wk weight [in, heads * head_dim] trained with interleaved
+    pairs, its output columns permuted per head by
+    :func:`deinterleave_perm` for :func:`apply_rope`'s split halves: the
+    attention scores are unchanged."""
+    in_dim, out = w.shape
+    perm = deinterleave_perm(head_dim).to(w.device)
+    return w.reshape(in_dim, out // head_dim, head_dim)[:, :, perm].reshape(
+        in_dim, out)
 
 
 def apply_rope(

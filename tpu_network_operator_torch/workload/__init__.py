@@ -10,10 +10,14 @@ versions), with random weights:
   or, with ``--model moe``, a Mixtral-family MoE preset (tiny, small,
   mixtral-8x7b), with AdamW or 8-bit AdamW (``--optimizer adam8bit``), on
   a fixed synthetic batch or a token file (``--data``), resuming from and
-  saving to ``--checkpoint-dir``.
+  saving to ``--checkpoint-dir``, whose ``cfg.json`` (from ``convert``)
+  gives the model;
+* ``convert`` -- import a Hugging Face Llama or Mixtral checkpoint
+  (``--hf-path``) as a step-0 train checkpoint plus its ``cfg.json``.
 
-The mesh flags, expert parallelism, HF import (``convert``), the
-collectives sweep and the exec bench come with later slices.
+``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the timed
+region.  The mesh flags, expert parallelism, the collectives sweep and the
+exec bench come with later slices.
 """
 
 from .cli import build_parser, main

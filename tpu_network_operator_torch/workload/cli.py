@@ -6,7 +6,17 @@ import argparse
 
 from .common import LLAMA_PRESET_NAMES
 from .generate import cmd_generate
-from .train import cmd_train
+from .train import cmd_convert, cmd_train
+
+
+def _device_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="torch device; 'cpu' runs the kernels' plain "
+                        "versions (default: cuda)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler Chrome trace of the timed "
+                        "region (host ops; kernels and copies on CUDA) to "
+                        "DIR/<subcommand>.trace.json")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -20,9 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
 
     g = sub.add_parser("generate", help="decode throughput")
-    g.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the kernels' plain "
-                        "versions (default: cuda)")
+    _device_flags(g)
     g.add_argument("--preset", default="tiny", choices=LLAMA_PRESET_NAMES)
     g.add_argument("--batch", type=int, default=4)
     g.add_argument("--prompt-len", type=int, default=16)
@@ -42,9 +50,7 @@ def build_parser() -> argparse.ArgumentParser:
     g.set_defaults(fn=cmd_generate)
 
     t = sub.add_parser("train", help="training throughput")
-    t.add_argument("--device", default="cuda",
-                   help="torch device; 'cpu' runs the kernels' plain "
-                        "versions (default: cuda)")
+    _device_flags(t)
     t.add_argument("--model", choices=["llama", "moe"], default="llama")
     t.add_argument("--preset", default="tiny",
                    help="the model's preset (llama: %s; moe: tiny, small, "
@@ -61,11 +67,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "semantics; adam8bit: int8/f8 moment storage, half "
                         "the optimizer memory of bf16 moments")
     t.add_argument("--checkpoint-dir", default=None,
-                   help="save here, and resume from its latest step")
+                   help="save here, and resume from its latest step; a "
+                        "cfg.json there (workload convert) gives the model "
+                        "in place of --model / --preset")
     t.add_argument("--checkpoint-every", type=int, default=0,
                    help="also save every N updates (0: only the last)")
     t.add_argument("--keep-checkpoints", type=int, default=3)
     t.set_defaults(fn=cmd_train)
+
+    cv = sub.add_parser(
+        "convert", help="import an HF Llama or Mixtral checkpoint into a "
+                        "train checkpoint (+cfg.json sidecar)")
+    _device_flags(cv)
+    cv.add_argument("--hf-path", required=True,
+                    help="local HF checkpoint directory (config.json and "
+                         "*.safetensors or pytorch_model*.bin)")
+    cv.add_argument("--checkpoint-dir", required=True)
+    cv.add_argument("--optimizer", choices=["adamw", "adam8bit"],
+                    default="adamw",
+                    help="optimizer whose fresh state is saved beside the "
+                         "imported params (train resumes with the same)")
+    cv.set_defaults(fn=cmd_convert)
     return p
 
 

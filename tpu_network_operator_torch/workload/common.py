@@ -1,10 +1,14 @@
-"""Shared plumbing for the workload subcommands: result emission and
-model presets (the port's own copies of the reference's helpers)."""
+"""Shared plumbing for the workload subcommands: result emission, model
+presets and ``--profile`` (the port's own copies of the reference's
+helpers)."""
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import sys
+from typing import Optional
 
 import torch
 
@@ -57,3 +61,27 @@ def pick_preset(presets: dict, name: str, model: str):
             f"choose from {sorted(presets)}"
         )
     return presets[name]()
+
+
+@contextlib.contextmanager
+def maybe_profile(directory: Optional[str], name: str,
+                  device: torch.device):
+    """``torch.profiler`` over the block when ``directory`` is given (the
+    ``--profile`` flag), else nothing: the host's ops and, on CUDA, the
+    card's kernels and copies, written on exit as the Chrome trace
+    ``<directory>/<name>.trace.json``."""
+    if not directory:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+        sync(device)
+    path = os.path.join(directory, f"{name}.trace.json")
+    prof.export_chrome_trace(path)
+    log(f"profile of {name} written to {path}")

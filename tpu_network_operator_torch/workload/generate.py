@@ -7,7 +7,8 @@ import time
 import torch
 
 from .. import resolve_device
-from .common import emit, llama_presets, log, pick_preset, sync
+from .common import (emit, llama_presets, log, maybe_profile, pick_preset,
+                     sync)
 
 
 def cmd_generate(args) -> int:
@@ -33,9 +34,10 @@ def cmd_generate(args) -> int:
     t0 = time.perf_counter()
     out = run_once()
     log(f"first call {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    out = run_once()
-    dt = time.perf_counter() - t0
+    with maybe_profile(args.profile, "generate", device):
+        t0 = time.perf_counter()
+        out = run_once()
+        dt = time.perf_counter() - t0
 
     emit({
         "metric": f"{args.preset} decode throughput",

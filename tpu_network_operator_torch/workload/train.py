@@ -1,27 +1,44 @@
-"""``workload train``: training throughput on one device, with resumable
-checkpoints (``--checkpoint-dir``) and a token file (``--data``)."""
+"""``workload train`` / ``workload convert``: training throughput on one
+device, with resumable checkpoints (``--checkpoint-dir``) and a token file
+(``--data``), and HF-checkpoint import."""
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
 
 from .. import resolve_device
-from .common import emit, llama_presets, log, moe_presets, pick_preset, sync
+from .common import (emit, llama_presets, log, maybe_profile, moe_presets,
+                     pick_preset, sync)
+
+
+def _train_step_factory(family: str):
+    if family == "moe":
+        from ..models.moe import make_train_step
+    else:
+        from ..models.llama import make_train_step
+    return make_train_step
 
 
 def cmd_train(args) -> int:
-    if args.model == "moe":
-        from ..models.moe import make_train_step
-
-        presets = moe_presets()
-    else:
-        from ..models.llama import make_train_step
-
-        presets = llama_presets()
     device = resolve_device(args.device)
-    cfg = pick_preset(presets, args.preset, args.model)
+    # an imported checkpoint (workload convert) carries its own geometry,
+    # family and rope scaling included, which beats --model / --preset
+    sidecar_cfg = None
+    sidecar = os.path.join(args.checkpoint_dir or "", "cfg.json")
+    if args.checkpoint_dir and os.path.exists(sidecar):
+        from ..models.convert import cfg_from_json, family
+
+        with open(sidecar) as f:
+            sidecar_cfg = cfg_from_json(f.read())
+        args.model = family(sidecar_cfg)
+        log(f"config from {sidecar} ({args.model}; overrides "
+            "--model/--preset)")
+    presets = moe_presets() if args.model == "moe" else llama_presets()
+    cfg = sidecar_cfg or pick_preset(presets, args.preset, args.model)
+    make_train_step = _train_step_factory(args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
     step, init_all, _ = make_train_step(cfg, optimizer=optimizer,
                                         device=device)
@@ -70,19 +87,20 @@ def cmd_train(args) -> int:
     last = start_step + args.steps
     t0 = time.perf_counter()
     params, opt_state, loss = step(params, opt_state, next_batch())
-    loss_val = float(loss)
+    first_loss = loss_val = float(loss)
     first_dt = time.perf_counter() - t0
     log(f"first step {first_dt:.1f}s loss {loss_val:.4f}")
     maybe_save(start_step + 1, last)
 
     timed_steps = args.steps - 1
-    t0 = time.perf_counter()
-    for i in range(start_step + 2, last + 1):
-        params, opt_state, loss = step(params, opt_state, next_batch())
-        maybe_save(i, last)
-    loss_val = float(loss)
-    sync(device)
-    dt = time.perf_counter() - t0
+    with maybe_profile(args.profile, "train", device):
+        t0 = time.perf_counter()
+        for i in range(start_step + 2, last + 1):
+            params, opt_state, loss = step(params, opt_state, next_batch())
+            maybe_save(i, last)
+        loss_val = float(loss)
+        sync(device)
+        dt = time.perf_counter() - t0
     if ckpt is not None:
         ckpt.close()
     if timed_steps == 0:
@@ -95,7 +113,47 @@ def cmd_train(args) -> int:
         "unit": "tokens/sec/chip",
         "steps": args.steps,
         "final_loss": round(loss_val, 4),
+        # the first step's loss, unrounded: an imported checkpoint's is
+        # the imported weights' loss on the first batch
+        "first_loss": first_loss,
         "mesh": {"devices": 1, "device": str(device)},
         "resumed_from": start_step,
+    })
+    return 0
+
+
+def cmd_convert(args) -> int:
+    """HF checkpoint (Llama or Mixtral) -> a step-0 train checkpoint of the
+    imported parameters and the optimizer's fresh state, plus the
+    ``cfg.json`` sidecar; ``workload train --checkpoint-dir`` resumes from
+    it with the checkpoint's own geometry (rope scaling included).  The
+    optimizer must be the one ``train`` is then given."""
+    from ..models.checkpoint import TrainCheckpointer
+    from ..models.convert import cfg_to_json, family, load_hf_checkpoint
+
+    device = resolve_device(args.device)
+    with maybe_profile(args.profile, "convert", device):
+        params, cfg = load_hf_checkpoint(args.hf_path, device=device)
+        log(f"imported {cfg.num_params() / 1e9:.2f}B params from "
+            f"{args.hf_path}")
+        # the family's make_train_step picks the optimizer, so the
+        # saved state has the structure cmd_train restores into
+        optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
+        _, _, optimizer = _train_step_factory(family(cfg))(
+            cfg, optimizer=optimizer, device=device)
+        opt_state = optimizer.init(params)
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "cfg.json"), "w") as f:
+            f.write(cfg_to_json(cfg))
+        with TrainCheckpointer(args.checkpoint_dir) as ckpt:
+            ckpt.save(0, params, opt_state)
+    emit({
+        "metric": "hf checkpoint import",
+        "value": round(cfg.num_params() / 1e9, 3),
+        "unit": "B params",
+        "checkpoint_dir": args.checkpoint_dir,
+        "family": family(cfg),
+        "rope_scaling": bool(getattr(cfg, "rope_scaling", None)),
+        "mesh": {"devices": 1, "device": str(device)},
     })
     return 0
