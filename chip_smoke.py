@@ -63,10 +63,28 @@ Phases, each printing JSON lines; any failure exits non-zero:
     "ffn_offload": one step from the same state gives the same bits; then
     each policy's step time, peak memory, copies over the host link and a
     pinned-copy bandwidth probe;
-15. the kernel table: each kernel's time at its path's shapes beside its
+15. mesh_world1: a bootstrap file of the agent's schema (one process, one
+    chip, a free local port) under ``.chip_smoke_tmp/`` starts the NCCL
+    process group through the workload's ``init_distributed`` (the job
+    lock held) and ``build_mesh`` builds the all-ones mesh; the
+    collectives on that group are identities; the train cell's step (3
+    steps) and greedy serving at batch 64, prompt 128, 128 new tokens run
+    through the mesh path against the single-device path from the same
+    seed: the loss within 1e-5 relative, every leaf within 1e-3 in
+    relative norm (whether they are the same bits is printed), the same
+    tokens, the same launches, each side's step time and tokens/s;
+16. ring_virtual: the ring's per-step body over 4 chunks of one 8192-token
+    sequence held in one process, forward and backward, at
+    ``llama3-1b``'s and ``moe-small``'s attention geometry (D 64 and 128),
+    against the dense flash call: 10 chunk forwards and 10 + 10 chunk
+    backwards asserted, out within the bf16 atol, dq / dk / dv within the
+    backward's relative-norm tolerance, the ring's device time beside the
+    dense call's;
+17. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
-    flash kernels also at the MoE cell's head_dim 128, and its launches in
-    every path above.
+    flash kernels also at the MoE cell's head_dim 128 and as the ring's
+    chunk calls (2048 x 2048, the diagonal and a past chunk, f32
+    backward outputs), and its launches in every path above.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
 steps with carried state, bit for bit, each leaf shape alone, the 12
@@ -103,6 +121,7 @@ import io
 import json
 import math
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -137,10 +156,12 @@ from tpu_network_operator_torch.models.llama import (  # noqa: E402
     loss_fn,
     make_train_step,
     params_to,
+    shard_params,
 )
 from tpu_network_operator_torch.ops import _kernels  # noqa: E402
 from tpu_network_operator_torch.ops import flash_attention as fa  # noqa: E402
 from tpu_network_operator_torch.ops import norms  # noqa: E402
+from tpu_network_operator_torch.parallel import ring  # noqa: E402
 
 BATCH, PROMPT, NEW_TOKENS = 64, 128, 256
 SEED = 0
@@ -155,6 +176,15 @@ CKPT_LAYERS, CKPT_BATCH, CKPT_SEQ = 2, 2, 1024
 # adamw8bit run of the same model
 MOE_BATCH, MOE_SEQ, MOE_STEPS, MOE_A8_STEPS = 4, 2048, 4, 2
 SCRATCH = Path(__file__).resolve().parent / ".chip_smoke_tmp"
+# the mesh at a world of one: the train cell's step (3 steps) and serving
+# (MESH_NEW_TOKENS) through the mesh path, against the single-device path
+MESH_NEW_TOKENS = 128
+# the ring's schedule over RING_CHUNKS chunks of one RING_SEQ sequence in
+# one process, at llama3-1b's and moe-small's attention geometry
+# [B, S, H, Hkv, D]
+RING_CHUNKS, RING_SEQ = 4, 8192
+RING_GEOMS = {"llama3-1b": (1, RING_SEQ, 32, 8, 64),
+              "moe-small": (1, RING_SEQ, 16, 8, 128)}
 # the import phases: Llama-3.2-1B's published config.json
 # (meta-llama/Llama-3.2-1B: tied embeddings, llama3 rope scaling), and
 # MoEConfig.small's widths as a Mixtral config.json (Mixtral-8x7B's
@@ -271,6 +301,11 @@ A8_TOL = {"update_rtol": 1e-2, "update_atol": 1e-6, "scale_rtol": 1e-6,
 # embedding gradient's scatter adds in another order: each weight within
 # 2 * lr (a moment's code one step away) plus one bf16 ulp of itself
 CKPT_PARAM_ATOL = 2 * A8_LR
+# the mesh at a world of one against one device: the same operations on
+# the same bits, so anything past the f32 loss's last digits or a leaf's
+# rounding is a fault of the mesh path
+MESH_LOSS_REL = 1e-5
+MESH_LEAF_REL = 1e-3
 
 
 def emit(payload: dict) -> None:
@@ -2062,6 +2097,222 @@ def phase_remat_ffn_offload() -> dict:
     return launches
 
 
+# -- the mesh ------------------------------------------------------------------
+
+
+def _write_bootstrap(path: Path) -> None:
+    """A bootstrap file of the agent's schema for one process with one
+    chip, its coordinator on a free local port."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    path.write_text(json.dumps({
+        "version": 1, "coordinator_address": f"127.0.0.1:{port}",
+        "num_processes": 1, "process_id": 0,
+        "topology": {"num_chips": 1, "chips_per_host": 1, "num_slices": 1},
+    }))
+
+
+def _mesh_train(cfg, mesh, steps: int) -> dict:
+    step, init_all, _ = make_train_step(cfg, device="cuda", mesh=mesh)
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    params, opt_state = init_all(gen)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           device="cuda", generator=gen)
+    params, opt_state, losses, step_s, per_step, first_s = run_steps(
+        step, params, opt_state, tokens, steps)
+    del opt_state
+    med = statistics.median(step_s)
+    return {"params": params, "losses": losses, "per_step": per_step,
+            "first_step_s": first_s, "median_step_s": med,
+            "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / med}
+
+
+def phase_mesh_world1() -> dict:
+    """The mesh path at a world of one: NCCL from a bootstrap file, the
+    all-ones mesh, the train step and serving through it against the
+    single-device path from the same seed."""
+    import torch.distributed as dist
+
+    from tpu_network_operator_torch.parallel import comm
+    from tpu_network_operator_torch.parallel.mesh import AXES
+    from tpu_network_operator_torch.workload.common import (batch_rows,
+                                                            build_mesh,
+                                                            init_distributed)
+
+    t_phase = time.perf_counter()
+    directory = SCRATCH / "mesh_world1"
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / "jax-coordinator.json"
+    _write_bootstrap(path)
+    boot, dev = init_distributed(str(path), "cuda")
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"the mesh's backend is {backend}, not nccl")
+        check(Path(str(path) + ".lock").exists(), "no job lock held")
+        mesh = build_mesh(argparse.Namespace(tensor=1, seq=1, expert=1,
+                                             pipe=1), boot, dev)
+        check(mesh.shape == dict.fromkeys(AXES, 1),
+              f"the world-1 mesh is {mesh.shape}")
+        # the collectives on the world's NCCL group: identities at one rank
+        world = dist.group.WORLD
+        x = torch.randn(8, 256, device="cuda")
+        ids = [comm.all_reduce(x, world), comm.all_gather(x, world, 1),
+               comm.reduce_scatter(x, world, 1),
+               comm.all_to_all(x, world, 1, 0)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(t, x) for t in ids),
+              "a world-1 NCCL collective changed its input")
+
+        # the train cell's step, 3 steps each way (a warm-up and 2 timed)
+        cfg = train_cfg()
+        single = _mesh_train(cfg, None, TRAIN_STEPS - 1)
+        meshed = _mesh_train(cfg, mesh, TRAIN_STEPS - 1)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in
+                       zip(meshed["losses"], single["losses"]))
+        leaf_rel = {n: rel_norm(a, b) for n, a, b in zip(
+            _leaf_names(single["params"]),
+            training.tree_leaves(meshed["params"]),
+            training.tree_leaves(single["params"]))}
+        same_bits = meshed["losses"] == single["losses"] and all(
+            torch.equal(bits(a), bits(b)) for a, b in zip(
+                training.tree_leaves(meshed["params"]),
+                training.tree_leaves(single["params"])))
+        del single["params"], meshed["params"]
+        torch.cuda.empty_cache()
+        want = {**remat_launches(cfg.layers), "adam8_fused": 0}
+        check(all(p == want for p in meshed["per_step"]),
+              f"mesh train-step launches {meshed['per_step']}, expected "
+              f"{want} per step")
+        check(loss_rel <= MESH_LOSS_REL,
+              f"mesh vs single-device loss: {loss_rel}")
+        check(max(leaf_rel.values()) <= MESH_LEAF_REL,
+              f"mesh vs single-device leaves: {leaf_rel}")
+
+        # serving: greedy generate through the mesh path
+        gcfg = LlamaConfig.llama3_1b()
+        gen = torch.Generator("cuda").manual_seed(SEED)
+        params = init_params(gcfg, gen, "cuda")
+        prompt = torch.randint(0, gcfg.vocab_size, (BATCH, PROMPT),
+                               device="cuda", generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_single = generate(params, prompt, gcfg, MESH_NEW_TOKENS)
+        torch.cuda.synchronize()
+        single_gen_s = time.perf_counter() - t0
+        mesh_params = shard_params(params, gcfg, mesh)
+        rows = batch_rows(prompt, mesh)
+        _kernels.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_mesh = generate(mesh_params, rows, gcfg, MESH_NEW_TOKENS,
+                            mesh=mesh)
+        torch.cuda.synchronize()
+        mesh_gen_s = time.perf_counter() - t0
+        gen_launches = dict(_kernels.LAUNCHES)
+        del params, mesh_params
+        torch.cuda.empty_cache()
+        check(torch.equal(out_mesh, out_single),
+              "mesh generate's greedy tokens differ from the single-device "
+              "path's")
+        want_gen = {"flash_fwd": gcfg.layers,
+                    "rms_norm_fwd": (2 * gcfg.layers + 1) * MESH_NEW_TOKENS,
+                    "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                    "rms_norm_bwd": 0, "adam8_fused": 0}
+        check(gen_launches == want_gen,
+              f"mesh generate launches {gen_launches}, expected {want_gen}")
+    finally:
+        dist.destroy_process_group()
+    emit({"phase": "mesh_world1", "backend": backend, "mesh": mesh.shape,
+          "bootstrap": str(path.relative_to(SCRATCH.parent)),
+          "train": {
+              "preset": "llama3-1b", "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+              "remat_policy": cfg.remat_policy, "xent_chunk": cfg.xent_chunk,
+              "steps": len(meshed["losses"]),
+              "losses": meshed["losses"],
+              "single_device_losses": single["losses"],
+              "loss_max_rel": loss_rel, "loss_tol": MESH_LOSS_REL,
+              "leaf_max_rel_norm": max(leaf_rel.values()),
+              "leaf_tol": MESH_LEAF_REL, "same_bits": same_bits,
+              "median_step_s": meshed["median_step_s"],
+              "single_device_median_step_s": single["median_step_s"],
+              "tokens_per_s": meshed["tokens_per_s"],
+              "single_device_tokens_per_s": single["tokens_per_s"],
+              "launches_per_step": meshed["per_step"][-1]},
+          "generate": {
+              "batch": BATCH, "prompt": PROMPT,
+              "new_tokens": MESH_NEW_TOKENS, "same_tokens": True,
+              "seconds": mesh_gen_s, "single_device_seconds": single_gen_s,
+              "tokens_per_s": BATCH * MESH_NEW_TOKENS / mesh_gen_s,
+              "single_device_tokens_per_s":
+                  BATCH * MESH_NEW_TOKENS / single_gen_s,
+              "launches": gen_launches},
+          "seconds": time.perf_counter() - t_phase})
+    shutil.rmtree(directory, ignore_errors=True)
+    return {"train": meshed["per_step"][-1], "generate": gen_launches}
+
+
+def phase_ring_virtual() -> dict:
+    """The ring's per-step body over RING_CHUNKS chunks of one sequence
+    held in one process, forward and backward, against the dense flash
+    call over the whole sequence, at each geometry of RING_GEOMS."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 12)
+    n = RING_CHUNKS
+    pairs = n * (n + 1) // 2
+    runs = {}
+    for geom, (b, s, h, hkv, d) in RING_GEOMS.items():
+        q, k, v = _flash_case(b, h, hkv, s, d, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        qs, ks, vs, dos = (list(t.chunk(n, dim=1)) for t in (q, k, v, do))
+        _kernels.reset_launches()
+        outs, lses = ring.ring_forward_chunks(qs, ks, vs, "flash")
+        fwd = dict(_kernels.LAUNCHES)
+        _kernels.reset_launches()
+        dq, dk, dv = ring.ring_backward_chunks(qs, ks, vs, outs, lses, dos,
+                                               "flash")
+        bwd = dict(_kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        zero = dict.fromkeys(_kernels.LAUNCHES, 0)
+        check(fwd == {**zero, "flash_fwd": pairs},
+              f"ring forward launches {fwd}, expected {pairs} flash_fwd")
+        check(bwd == {**zero, "flash_bwd_dq": pairs, "flash_bwd_dkv": pairs},
+              f"ring backward launches {bwd}, expected {pairs} each of "
+              "dq and dkv")
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        ro = fa.flash_attention(*leaves)
+        refs = torch.autograd.grad(ro, leaves, do)
+        o_err = max_err(torch.cat(outs, dim=1), ro)
+        grads = {name: grad_ok(torch.cat(t, dim=1), r) for name, t, r in
+                 zip(("dq", "dk", "dv"), (dq, dk, dv), refs)}
+        ok = o_err <= FLASH_O_ATOL and all(g["ok"] for g in grads.values())
+
+        def ring_run():
+            o, lse = ring.ring_forward_chunks(qs, ks, vs, "flash")
+            ring.ring_backward_chunks(qs, ks, vs, o, lse, dos, "flash")
+
+        def dense_run():
+            torch.autograd.grad(fa.flash_attention(*leaves), leaves, do)
+
+        ring_ms = time_ms_eager(ring_run, iters=3, reps=3)
+        dense_ms = time_ms_eager(dense_run, iters=3, reps=3)
+        emit({"phase": "ring_virtual", "geometry": geom,
+              "shape": [b, s, h, hkv, d], "chunks": n,
+              "launches_fwd": fwd, "launches_bwd": bwd,
+              "max_abs_err_out": o_err,
+              "tol": {"out_atol_bf16": FLASH_O_ATOL,
+                      "grad_rel_norm": GRAD_REL,
+                      "grad_max_frac": GRAD_MAX_FRAC},
+              "grads": grads, "ok": ok,
+              "ring_fwd_bwd_ms": ring_ms, "dense_fwd_bwd_ms": dense_ms})
+        check(ok, f"the ring over {n} chunks disagrees with dense flash at "
+                  f"{geom}: out {o_err}, {grads}")
+        runs[geom] = {k2: fwd[k2] + bwd[k2] for k2 in fwd}
+        del q, k, v, do, qs, ks, vs, dos, outs, lses, dq, dk, dv, leaves
+        del ro, refs
+        torch.cuda.empty_cache()
+    return runs
+
+
 def _leaf_names(tree, prefix=""):
     """Key paths in training.tree_leaves order."""
     for k, v in tree.items():
@@ -2077,7 +2328,7 @@ def _bound(nbytes, flops, bw, peak):
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def _sdpa_backward_ms(q, k, v, do):
+def _sdpa_backward_ms(q, k, v, do, causal=True):
     """One PyTorch call's backward for the same attention, as a yardstick:
     ``scaled_dot_product_attention`` forward + backward minus forward, on
     [B, H, S, D] copies, under the first fused backend that takes the GQA
@@ -2096,7 +2347,7 @@ def _sdpa_backward_ms(q, k, v, do):
             leaves = [t.detach().requires_grad_() for t in (qt, kk, vv)]
 
             def fwd():
-                return sdpa(*leaves, is_causal=True, enable_gqa=gqa)
+                return sdpa(*leaves, is_causal=causal, enable_gqa=gqa)
 
             def both():
                 return torch.autograd.grad(fwd(), leaves, dot)
@@ -2112,75 +2363,112 @@ def _sdpa_backward_ms(q, k, v, do):
     return None, {"backend": None}
 
 
-def flash_fwd_entry(gen, b, s, h, hkv, d, iters_plain, bw, peak) -> dict:
-    """The flash forward kernel at [B, S, H/Hkv, D] causal: its time, its
-    plain version's, SDPA's and its bound."""
+def _pairs(s: int, causal: bool) -> int:
+    """(q, k) pairs per head of an s x s chunk: causal or full."""
+    return s * (s + 1) // 2 if causal else s * s
+
+
+def flash_fwd_entry(gen, b, s, h, hkv, d, iters_plain, bw, peak,
+                    causal=True) -> dict:
+    """The flash forward kernel at [B, S, H/Hkv, D], causal or full: its
+    time, its plain version's, SDPA's and its bound."""
     q, k, v = _flash_case(b, h, hkv, s, d, gen)
-    o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+    o, lse = fa._flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
                                   head_dim=2)
-    ro, rlse = _flash_plain_bshd(q, k, v, True)
+    ro, rlse = _flash_plain_bshd(q, k, v, causal)
     err = max_err(o, ro)
     check(err <= FLASH_O_ATOL and max_err(lse, rlse) <= FLASH_LSE_ATOL,
           f"flash_fwd disagrees with its plain version at {(b, s, h, d)}")
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2 + b * h * s * 4
-    pairs = s * (s + 1) // 2            # causal (q, k) pairs per head
-    flops = 4 * d * pairs * b * h       # QK^T and PV over the causal pairs
+    # QK^T and PV over the live pairs
+    flops = 4 * d * _pairs(s, causal) * b * h
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     return {
-        "shape": [b, s, h, hkv, d], "max_abs_err": err,
+        "shape": [b, s, h, hkv, d], "causal": causal, "max_abs_err": err,
         "ms": time_ms(lambda: fa._flash_fwd_kernel(
-            q, k, v, causal=True, seq_dim=1, head_dim=2)),
-        "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, True),
+            q, k, v, causal=causal, seq_dim=1, head_dim=2)),
+        "plain_ms": time_ms(lambda: _flash_plain_bshd(q, k, v, causal),
                             iters=iters_plain, reps=5),
         **_bound(nbytes, flops, bw, peak),
         "library_ms": time_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
     }
 
 
-def flash_bwd_entries(gen, b, s, h, hkv, d, bw, peak):
-    """The dQ and the dK/dV kernels at [B, S, H/Hkv, D] causal: each one's
+def flash_bwd_entries(gen, b, s, h, hkv, d, bw, peak, causal=True,
+                      out_f32=False):
+    """The dQ and the dK/dV kernels at [B, S, H/Hkv, D], causal or full,
+    with bf16 outputs (the dense path) or f32 (a ring chunk): each one's
     time, its plain version's and its bound, and SDPA's whole backward."""
-    inputs = _flash_bwd_inputs(b, h, hkv, s, d, True, gen)
+    inputs = _flash_bwd_inputs(b, h, hkv, s, d, causal, gen)
     q, k, v, do, lse, delta = inputs
-    outs = _flash_bwd_kernels(*inputs, True)
-    refs = _flash_bwd_plain_bshd(*inputs, True)
+    kw = dict(causal=causal, seq_dim=1, head_dim=2, out_f32=out_f32)
+    outs = (fa._flash_bwd_dq_kernel(*inputs, **kw),
+            *fa._flash_bwd_dkv_kernel(*inputs, **kw))
+    if out_f32:
+        refs = tuple(t.transpose(1, 2) for t in fa._flash_bwd_plain_at_tiles(
+            *(t.transpose(1, 2) for t in (q, k, v, do)), lse, delta,
+            causal=causal))
+    else:
+        refs = _flash_bwd_plain_bshd(*inputs, causal)
     res, ok = _grads_ok(outs, refs)
     check(ok, f"flash backward disagrees with its plain version at "
-              f"{(b, s, h, hkv, d)}: {res}")
+              f"{(b, s, h, hkv, d, causal)}: {res}")
     del outs, refs
     qt, kt, vt, dot = (t.transpose(1, 2) for t in (q, k, v, do))
-    bp_dq = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DQ_TILE, True)
+    bp_dq = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DQ_TILE,
+                             causal)
     bp_dkv = fa._bwd_plain_at(qt, kt, vt, dot, lse, delta, fa.DKV_TILE,
-                              True)
-    lib_ms, lib = _sdpa_backward_ms(q, k, v, do)
-    pairs = s * (s + 1) // 2
-    matmul = 2 * d * pairs * b * h          # one causal product, all heads
+                              causal)
+    lib_ms, lib = _sdpa_backward_ms(q, k, v, do, causal)
+    matmul = 2 * d * _pairs(s, causal) * b * h   # one product, all heads
     q_bytes, kv_bytes, stat_bytes = q.numel() * 2, k.numel() * 2, b * h * s * 4
-    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False)
-    common = {"shape": [b, s, h, hkv, d], "library_ms": lib_ms,
+    out_size = 4 if out_f32 else 2
+    common = {"shape": [b, s, h, hkv, d], "causal": causal,
+              "out_f32": out_f32, "library_ms": lib_ms,
               "library": {**lib, "covers": "dq+dkv"}}
     dq = {**common, "max_abs_err": res["dq"]["max_abs_err"],
           "ms": time_ms(lambda: fa._flash_bwd_dq_kernel(*inputs, **kw)),
           "plain_ms": time_ms(lambda: fa._flash_bwd_dq_plain(bp_dq, q.dtype),
                               iters=1, reps=3),
           # S, dP and dQ; reads q, dO, k, v, lse, delta, writes dq
-          **_bound(3 * q_bytes + 2 * kv_bytes + 2 * stat_bytes, 3 * matmul,
-                   bw, peak)}
+          **_bound(2 * q_bytes + q.numel() * out_size + 2 * kv_bytes
+                   + 2 * stat_bytes, 3 * matmul, bw, peak)}
     dkv = {**common, "max_abs_err": max(res["dk"]["max_abs_err"],
                                         res["dv"]["max_abs_err"]),
            "ms": time_ms(lambda: fa._flash_bwd_dkv_kernel(*inputs, **kw)),
            "plain_ms": time_ms(lambda: fa._flash_bwd_dkv_plain(bp_dkv),
                                iters=1, reps=3),
            # S, dP, dV and dK; reads q, dO, k, v, lse, delta, writes dk, dv
-           **_bound(2 * q_bytes + 4 * kv_bytes + 2 * stat_bytes, 4 * matmul,
-                    bw, peak)}
+           **_bound(2 * q_bytes + 2 * kv_bytes + 2 * k.numel() * out_size
+                    + 2 * stat_bytes, 4 * matmul, bw, peak)}
     return dq, dkv
 
 
+def ring_chunk_entries(gen, bw, peak) -> dict:
+    """The ring's chunk calls at RING_GEOMS, each chunk RING_SEQ /
+    RING_CHUNKS long: the diagonal (causal) and a past chunk (full), the
+    forward and the f32 backward that chunk_fwd / chunk_bwd launch (the
+    same kernels on the same memory: the seams read [B, H, S, D] views of
+    these [B, S, H, D] tensors through strides)."""
+    s = RING_SEQ // RING_CHUNKS
+    rows = {"flash_fwd": {}, "flash_bwd_dq": {}, "flash_bwd_dkv": {}}
+    for geom, (b, _, h, hkv, d) in RING_GEOMS.items():
+        for kind, causal in (("diagonal", True), ("past", False)):
+            key = f"{geom}_d{d}_{kind}"
+            rows["flash_fwd"][key] = flash_fwd_entry(
+                gen, b, s, h, hkv, d, 1, bw, peak, causal=causal)
+            dq, dkv = flash_bwd_entries(gen, b, s, h, hkv, d, bw, peak,
+                                        causal=causal, out_f32=True)
+            rows["flash_bwd_dq"][key] = dq
+            rows["flash_bwd_dkv"][key] = dkv
+    return rows
+
+
 def phase_table(name: str, launches: dict, train_launches: dict,
-                adam8: dict, moe_runs: dict, more_launches: dict):
+                adam8: dict, moe_runs: dict, more_launches: dict,
+                ring_runs: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -2255,6 +2543,12 @@ def phase_table(name: str, launches: dict, train_launches: dict,
     })
     del x, dy, dx, rdx, xr, sr
 
+    # -- the ring's chunk calls, and their launches in the ring phase
+    chunks = ring_chunk_entries(gen, bw, bf16_peak)
+    for kernel, entries in chunks.items():
+        entries["launches"] = {geom: counts[kernel]
+                               for geom, counts in ring_runs.items()}
+
     # -- flash forward: the prefill shape (serving), the train shape and
     # the MoE cell's (head_dim 128)
     rows.append({
@@ -2270,6 +2564,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "train_moe_d128": {**flash_fwd_entry(gen, *moe_geom, 1, bw,
                                              bf16_peak),
                            "launches": moe_launches["flash_fwd"]},
+        "ring_chunk": chunks["flash_fwd"],
     })
 
     # -- flash backward at the train shape and the MoE cell's
@@ -2283,6 +2578,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "launches": train_launches["flash_bwd_dq"], **dq,
         "train_moe_d128": {**moe_dq,
                            "launches": moe_launches["flash_bwd_dq"]},
+        "ring_chunk": chunks["flash_bwd_dq"],
     })
     rows.append({
         "name": "flash_bwd_dkv", "route": "cuda",
@@ -2292,6 +2588,7 @@ def phase_table(name: str, launches: dict, train_launches: dict,
         "launches": train_launches["flash_bwd_dkv"], **dkv,
         "train_moe_d128": {**moe_dkv,
                            "launches": moe_launches["flash_bwd_dkv"]},
+        "ring_chunk": chunks["flash_bwd_dkv"],
     })
 
     # -- 8-bit AdamW: the largest leaf (embed and lm_head) as a one-leaf
@@ -2391,8 +2688,14 @@ def main(argv=None) -> int:
         "convert_train_mixtral_3_steps": phase_convert_train("mixtral"),
         "remat_ffn_offload_step": phase_remat_ffn_offload(),
     }
+    mesh = phase_mesh_world1()
+    more_launches["mesh_world1_train_step"] = mesh["train"]
+    more_launches["mesh_world1_generate"] = mesh["generate"]
+    ring_runs = phase_ring_virtual()
+    for geom, counts in ring_runs.items():
+        more_launches[f"ring_virtual_{geom}_fwd_bwd"] = counts
     phase_table(name, launches, train_launches, adam8, moe_runs,
-                more_launches)
+                more_launches, ring_runs)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

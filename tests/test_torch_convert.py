@@ -111,10 +111,8 @@ def assert_same_tree(port, ref, path=""):
 
 
 def same_fields(port_cfg, jax_cfg):
-    """The port's config and the reference's agree field by field (the
-    reference's Llama config also has seq_parallel, off here)."""
+    """The port's config and the reference's agree field by field."""
     pd, jd = dataclasses.asdict(port_cfg), dataclasses.asdict(jax_cfg)
-    assert jd.pop("seq_parallel", False) is False
     assert JDT[pd.pop("dtype")] == jd.pop("dtype")
     assert pd == jd
 
@@ -454,10 +452,15 @@ def test_sidecar_reads_both_ways(name, jcfg):
 
 
 def test_sidecar_refuses_seq_parallel():
-    text = jconvert.cfg_to_json(dataclasses.replace(
-        jllama.LlamaConfig.tiny(), seq_parallel=True))
-    with pytest.raises(ValueError, match="ROADMAP.md, queue 1 item 3"):
-        tconvert.cfg_from_json(text)
+    # refused while the port had no mesh; the sidecar now carries
+    # seq_parallel=true both ways, as the reference's does
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), seq_parallel=True)
+    text = jconvert.cfg_to_json(jcfg)
+    port = tconvert.cfg_from_json(text)
+    assert port.seq_parallel is True
+    same_fields(port, jcfg)
+    assert tconvert.cfg_to_json(port) == text
+    assert jconvert.cfg_from_json(tconvert.cfg_to_json(port)) == jcfg
 
 
 # -- interleaved RoPE (tests/test_rope.py's invariants, and the JAX

@@ -1,0 +1,177 @@
+"""Serving over a mesh and the workload CLI on launched ranks.
+
+The port's ``generate(..., mesh=...)`` on 4 gloo ranks (data x tensor and
+fsdp x tensor, the native and the int8 KV cache) gives the reference's
+greedy tokens: ``make_generate_fn(cfg, n, mesh=...)`` on 4 CPU devices,
+from the same f32 parameters (token ids compared exactly; the tiny model's
+top-1 margins are far above f32 summation noise).  ``workload train`` on
+2 processes started as a launcher starts them prints its JSON line with
+the mesh, and the combinations this slice does not shard exit by name.
+"""
+
+import dataclasses
+import json
+import os
+import socket
+import subprocess
+import sys
+from argparse import Namespace
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_dist_attention import run_ranks
+
+ROOT = Path(__file__).resolve().parents[1]
+# name -> (mesh axes over 4 ranks, KV-cache dtype)
+MESHES = {
+    "data2_tensor2": (dict(data=2, tensor=2, fsdp=1), "native"),
+    "fsdp2_tensor2": (dict(fsdp=2, tensor=2), "native"),
+    "data2_tensor2_int8": (dict(data=2, tensor=2, fsdp=1), "int8"),
+}
+PROMPT, NEW = 8, 8
+
+
+def _generate_rank(rank, world, tree, prompt):
+    from tpu_network_operator_torch.models import llama as tllama
+    from tpu_network_operator_torch.models.generate import make_generate_fn
+    from tpu_network_operator_torch.parallel import make_mesh, plan_axes
+
+    cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), dtype=torch.float32)
+    out = {}
+    for name, (axes, kv_dtype) in MESHES.items():
+        mesh = make_mesh(plan_axes(world, **axes), "cpu")
+        params = tllama.shard_params(tllama.params_from_jax(tree, "cpu"),
+                                     cfg, mesh)
+        rows = torch.from_numpy(prompt).chunk(mesh.size("data", "fsdp"))[
+            mesh.index("data", "fsdp")]
+        gen = make_generate_fn(cfg, NEW, kv_dtype=kv_dtype, mesh=mesh)
+        out[name] = (mesh.index("data", "fsdp"), gen(params, rows).numpy())
+    return out
+
+
+@pytest.fixture(scope="module")
+def reference_params():
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_network_operator.models import llama as jllama
+
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype=jnp.float32)
+    return jax.tree.map(np.asarray, jllama.init_params(jax.random.key(3),
+                                                       jcfg))
+
+
+@pytest.fixture(scope="module")
+def prompt():
+    return np.random.default_rng(4).integers(0, 256, (4, PROMPT),
+                                             dtype=np.int32)
+
+
+@pytest.fixture(scope="module")
+def world4(reference_params, prompt, tmp_path_factory):
+    return run_ranks(4, _generate_rank, reference_params, prompt,
+                     store_dir=tmp_path_factory.mktemp("store"))
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_mesh_generate_gives_the_reference_greedy_tokens(
+        world4, reference_params, prompt, name):
+    import jax
+    import jax.numpy as jnp
+
+    from tpu_network_operator.models import llama as jllama
+    from tpu_network_operator.models.generate import make_generate_fn
+    from tpu_network_operator.parallel import make_mesh, plan_axes
+
+    axes, kv_dtype = MESHES[name]
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), dtype=jnp.float32)
+    mesh = make_mesh(plan_axes(4, **axes), devices=jax.devices()[:4])
+    ref = np.asarray(make_generate_fn(jcfg, NEW, kv_dtype=kv_dtype,
+                                      mesh=mesh)(
+        jax.tree.map(jnp.asarray, reference_params), jnp.asarray(prompt)))
+    shards = {}
+    for r in world4:
+        index, rows = r[name]
+        if index in shards:     # the ranks of one batch shard agree
+            np.testing.assert_array_equal(rows, shards[index])
+        shards[index] = rows
+    got = np.concatenate([shards[i] for i in sorted(shards)])
+    np.testing.assert_array_equal(got, ref)
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_workload_train_on_two_launched_ranks_prints_its_mesh():
+    argv = [sys.executable, "-m", "tpu_network_operator_torch.workload",
+            "train", "--device", "cpu", "--preset", "tiny", "--tensor", "2",
+            "--steps", "2", "--batch", "4", "--seq-len", "32"]
+    port = str(_free_port())
+    procs = []
+    for rank in range(2):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
+               "WORLD_SIZE": "2", "MASTER_ADDR": "127.0.0.1",
+               "MASTER_PORT": port, "OMP_NUM_THREADS": "1"}
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE))
+    lines = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=120)
+            assert p.returncode == 0, err
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    want = {"data": 1, "fsdp": 1, "pipe": 1, "expert": 1, "seq": 1,
+            "tensor": 2, "devices": 2, "device": "cpu"}
+    for line in lines:
+        assert line["mesh"] == want
+        assert line["unit"] == "tokens/sec/chip" and line["value"] > 0
+        assert np.isfinite(line["final_loss"])
+    assert lines[0]["final_loss"] == lines[1]["final_loss"]
+    assert lines[0]["first_loss"] == lines[1]["first_loss"]
+
+
+@pytest.mark.parametrize("flags,named", [
+    (dict(pipe=2), "--pipe > 1"),
+    (dict(expert=2, model="moe"), "--expert > 1, --model moe"),
+    (dict(model="moe"), "--model moe"),
+    (dict(optimizer="adam8bit"), "--optimizer adam8bit"),
+    (dict(checkpoint_dir="ckpt"), "--checkpoint-dir"),
+])
+def test_train_refuses_what_this_slice_does_not_shard(flags, named):
+    from tpu_network_operator_torch.workload import train
+
+    args = Namespace(**{**dict(pipe=1, expert=1, model="llama",
+                               optimizer="adamw", checkpoint_dir=None),
+                        **flags})
+    with pytest.raises(SystemExit, match=f"{named} on a mesh of more than "
+                                         "one process: not in the port yet "
+                                         r"\(ROADMAP.md, queue 1 item 3\)"):
+        train._refuse_on_mesh(args)
+
+
+def test_reference_refusals_come_first():
+    from tpu_network_operator_torch.workload import cli
+
+    with pytest.raises(SystemExit, match="--expert requires --model moe"):
+        cli.main(["train", "--device", "cpu", "--expert", "2"])
+    with pytest.raises(SystemExit, match="ulysses cannot nest"):
+        cli.main(["train", "--device", "cpu", "--pipe", "2", "--seq", "2",
+                  "--sp-impl", "ulysses"])
+    with pytest.raises(SystemExit, match="convert over a mesh"):
+        cli.main(["convert", "--device", "cpu", "--hf-path", "hf",
+                  "--checkpoint-dir", "ckpt", "--tensor", "2"])
+    # one process cannot hold a 2-way axis
+    with pytest.raises(ValueError, match="does not divide device count 1"):
+        cli.main(["train", "--device", "cpu", "--tensor", "2"])

@@ -6,6 +6,7 @@ import json
 import subprocess
 import sys
 from pathlib import Path
+from types import SimpleNamespace
 
 import pytest
 import torch
@@ -32,7 +33,10 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert f"{PACKAGE}.workload.__main__" in mods
     assert {f"{PACKAGE}.data", f"{PACKAGE}.models.optim8bit",
             f"{PACKAGE}.models.checkpoint",
-            f"{PACKAGE}.models.convert"} <= set(mods)
+            f"{PACKAGE}.models.convert", f"{PACKAGE}.bootstrap",
+            f"{PACKAGE}.parallel", f"{PACKAGE}.parallel.comm",
+            f"{PACKAGE}.parallel.mesh", f"{PACKAGE}.parallel.ring",
+            f"{PACKAGE}.parallel.ulysses"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -53,7 +57,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from tpu_network_operator_torch.models import generate as tgen
     from tpu_network_operator_torch.models import llama as tllama
     from tpu_network_operator_torch.models import optim8bit as topt
-    from tpu_network_operator_torch.workload import cli
+    from tpu_network_operator_torch import bootstrap as tboot
+    from tpu_network_operator_torch.parallel import mesh as tmesh
+    from tpu_network_operator_torch.workload import cli, common
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = tllama.LlamaConfig.tiny()
@@ -79,6 +85,18 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         tconvert.load_hf_checkpoint("hf")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         topt.adam8_state_from_jax(None)
+    # the mesh: the process group, the mesh and the sharded step
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.init_distributed(None, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        common.init_distributed("jax-coordinator.json", None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "--preset", "tiny", "--tensor", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tmesh.init_process_group(tboot.BootstrapConfig(), None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tllama.make_train_step(cfg, mesh=SimpleNamespace(
+            device=torch.device("cuda", 0)))
     assert resolve_device("cpu") == torch.device("cpu")
 
 

@@ -880,3 +880,89 @@ def test_moe_train_step_on_card_matches_cpu(cuda):
                 "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
                 "adam8_fused": 1}
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-2 * losses["cpu"]
+
+
+# -- the mesh: the ring's per-chunk schedule and the collectives -------------
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ring_chunks_ragged_match_dense_flash(cuda, d):
+    # three chunks of 200 rows (ragged tiles, masked) driven in one
+    # process through the ring's per-step body, against the dense kernels
+    # over all 600: n(n+1)/2 chunk launches each way
+    from tpu_network_operator_torch.parallel import ring
+
+    n, s = 3, 200
+    q, k, v = _qkv(cuda, 1, n * s, n * s, 8, 2, d)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).bfloat16()
+    qs, ks, vs, dos = (list(t.chunk(n, dim=1)) for t in (q, k, v, do))
+    _kernels.reset_launches()
+    outs, lses = ring.ring_forward_chunks(qs, ks, vs, "flash")
+    assert _kernels.LAUNCHES["flash_fwd"] == n * (n + 1) // 2
+    dq, dk, dv = ring.ring_backward_chunks(qs, ks, vs, outs, lses, dos,
+                                           "flash")
+    assert _kernels.LAUNCHES["flash_bwd_dq"] == n * (n + 1) // 2
+    assert _kernels.LAUNCHES["flash_bwd_dkv"] == n * (n + 1) // 2
+    ro, rlse = tfa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                     head_dim=2)
+    torch.testing.assert_close(torch.cat(outs, dim=1), ro, rtol=0,
+                               atol=2e-2)
+    torch.testing.assert_close(torch.cat(lses, dim=2), rlse, rtol=0,
+                               atol=1e-4)
+    delta = tfa.attention_delta(ro.transpose(1, 2), do.transpose(1, 2))
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=True)
+    rdq = tfa._flash_bwd_dq_kernel(q, k, v, do, rlse, delta, **kw)
+    rdk, rdv = tfa._flash_bwd_dkv_kernel(q, k, v, do, rlse, delta, **kw)
+    for name, t, r in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        _assert_grad_close(torch.cat(t, dim=1), r, name)
+
+
+def test_ring_step_on_a_past_chunk_longer_than_its_queries(cuda):
+    # Sk != Sq on a strictly-past chunk, both ragged: the kernels' masked
+    # tiles, held to the plain versions at the kernels' tiles
+    from tpu_network_operator_torch.parallel import ring
+
+    q, k, v = _qkv(cuda, 2, 200, 328, 8, 2, 128, layout="bhsd")
+    do = torch.randn(q.shape, device="cuda", generator=cuda).bfloat16()
+    engine = ring._Flash(328)      # blocks that take both lengths
+    o, lse = ring.fwd_step(engine, q, k, v, 0, 1, None)
+    ro, rlse = tfa._flash_fwd_plain_at_tiles(q, k, v, causal=False)
+    torch.testing.assert_close(o, ro.float(), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    delta = tfa.attention_delta(o, do)
+    grads = ring.bwd_step(engine, q, k, v, do, lse, delta, 0, 1, *(
+        torch.zeros_like(t, dtype=torch.float32) for t in (q, k, v)))
+    refs = tfa._flash_bwd_plain_at_tiles(q, k, v, do, lse, delta,
+                                         causal=False)
+    for name, t, r in zip(("dq", "dk", "dv"), grads, refs):
+        _assert_grad_close(t, r, name)
+
+
+def test_collectives_on_a_world1_nccl_group_are_identities(cuda, tmp_path):
+    import torch.distributed as dist
+
+    from tpu_network_operator_torch.parallel import comm
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        g = dist.group.WORLD
+        x = torch.randn(4, 6, 8, device="cuda", generator=cuda)
+        for name, fn in (
+                ("split", lambda t: comm.split(t, g, 1)),
+                ("gather", lambda t: comm.gather(t, g, 1)),
+                ("gather_sum", lambda t: comm.gather_sum(t, g, 2)),
+                ("copy_to", lambda t: comm.copy_to(t, g)),
+                ("reduce_from", lambda t: comm.reduce_from(t, g)),
+                ("all_to_all", lambda t: comm.all_to_all(t, g, 2, 1))):
+            t = x.clone().requires_grad_()
+            y = fn(t)
+            (gx,) = torch.autograd.grad(y, t, 2 * x)
+            torch.cuda.synchronize()
+            assert torch.equal(y, x), name
+            assert torch.equal(gx, 2 * x), name
+        assert torch.equal(comm.all_reduce(x, g), x)
+        assert torch.equal(comm.reduce_scatter(x, g, 1), x)
+        assert torch.equal(comm.all_gather(x, g, 2), x)
+    finally:
+        dist.destroy_process_group()

@@ -1,10 +1,11 @@
-"""Input pipeline: a flat token stream to batches on one device.
+"""Input pipeline: a flat token stream to batches on the device.
 
 The port's own copy of ``tpu_network_operator/data.py`` (which it may not
 import): the numpy token sources and :func:`local_batches` are the
 reference's, unchanged, so both packages draw the same batches from the
-same file and seed; :func:`device_batches` is the single-device
-counterpart of its ``sharded_batches``.
+same file and seed; :func:`device_batches` puts one process's rows on its
+device, and :func:`sharded_batches` is the counterpart of the reference's
+``sharded_batches`` on a mesh of one process per GPU.
 
 * batches are built host-side in numpy from a flat token stream: a
   memory-mapped ``.bin`` file of uint16/uint32 token ids (the
@@ -174,10 +175,12 @@ def device_batches(
     *,
     start_step: int = 0,
     prefetch: int = 1,
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[torch.Tensor]:
-    """Yields the batches of :func:`local_batches` as int32 tensors
-    ``[batch, seq_len+1]`` on ``device`` (None means CUDA), ``prefetch``
-    batches ahead.
+    """Yields the batches of :func:`local_batches` (this process's rows,
+    ``[batch/process_count, seq_len+1]``) as int32 tensors on ``device``
+    (None means CUDA), ``prefetch`` batches ahead.
 
     On CUDA each batch is copied from a pinned host tensor of its own with
     ``non_blocking=True``: a pinned buffer refilled while its copy is in
@@ -185,7 +188,9 @@ def device_batches(
     reused (the caching host allocator holds a freed one back until its
     copy has finished)."""
     dev = resolve_device(device)
-    it = local_batches(source, cfg, start_step=start_step)   # validates now
+    it = local_batches(source, cfg, start_step=start_step,  # validates now
+                       process_index=process_index,
+                       process_count=process_count)
 
     def put(local: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(local)
@@ -202,3 +207,22 @@ def device_batches(
             yield buf.popleft()
 
     return gen()
+
+
+def sharded_batches(
+    source: TokenSource,
+    cfg: DataConfig,
+    mesh,
+    *,
+    start_step: int = 0,
+    prefetch: int = 1,
+) -> Iterator[torch.Tensor]:
+    """This rank's rows of each global batch on its device: the batch is
+    sharded over data x fsdp (the reference's ``P(("data", "fsdp"),
+    None)``), so the rank's coordinate there is its ``process_index`` in
+    :func:`local_batches`, and every rank of one batch shard (along
+    ``seq``, ``tensor`` and ``pipe``) draws the same rows."""
+    return device_batches(
+        source, cfg, mesh.device, start_step=start_step, prefetch=prefetch,
+        process_index=mesh.index("data", "fsdp"),
+        process_count=mesh.size("data", "fsdp"))

@@ -386,15 +386,12 @@ def family(cfg) -> str:
 def cfg_to_json(cfg) -> str:
     """The sidecar of an imported checkpoint (``workload convert``): the
     config's fields, a ``family`` tag, the dtype by name and the rope
-    scaling as a mapping, in the reference's schema (a Llama config also
-    says ``seq_parallel: false``, a field of the reference's config)."""
+    scaling as a mapping, in the reference's schema."""
     d = dataclasses.asdict(cfg)
     d["family"] = family(cfg)
     d["dtype"] = str(cfg.dtype).removeprefix("torch.")
-    if isinstance(cfg, LlamaConfig):
-        d["seq_parallel"] = False
-        if cfg.rope_scaling:
-            d["rope_scaling"] = dict(cfg.rope_scaling)
+    if isinstance(cfg, LlamaConfig) and cfg.rope_scaling:
+        d["rope_scaling"] = dict(cfg.rope_scaling)
     return json.dumps(d, indent=2, sort_keys=True)
 
 
@@ -409,11 +406,6 @@ def cfg_from_json(text: str):
     d["dtype"] = dtype
     if fam == "moe":
         return MoEConfig(**d)
-    if d.pop("seq_parallel", False):
-        raise ValueError(
-            "cfg.json: seq_parallel=true needs the multi-GPU layouts, "
-            "which are not ported yet (ROADMAP.md, queue 1 item 3)"
-        )
     d["rope_scaling"] = LlamaConfig.rope_scaling_from(d.get("rope_scaling"))
     return LlamaConfig(**d)
 

@@ -1,6 +1,11 @@
 """Autoregressive generation with a static-shape KV cache.
 
-Counterpart of ``tpu_network_operator/models/generate.py`` on one device.
+Counterpart of ``tpu_network_operator/models/generate.py``, on one
+device or over a mesh of data x fsdp x tensor ranks (``mesh=``): each rank
+then serves its rows of the batch with its shards of the parameters
+(:class:`.llama.Layout`, the train step's sharded layer without the
+backward), and its KV cache holds its rows and its kv-heads, as the
+reference's ``cache_specs`` lays the cache out.  A seq axis replicates.
 
 * The KV cache is one buffer pair ``[L, B, max_len, Hkv, D]`` allocated
   once per :func:`generate` call.  Each step writes its fresh K/V rows
@@ -18,6 +23,7 @@ Counterpart of ``tpu_network_operator/models/generate.py`` on one device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -28,29 +34,33 @@ from ..ops.flash_attention import flash_attention
 from ..ops.flash_attention import use_flash
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_at, rope_angles
-from .llama import LlamaConfig, Params, unbind_layers
+from ..parallel import comm
+from .llama import Layout, LlamaConfig, Params, unbind_layers
 
 
 def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
     """Flash for the prefill pass: only when the query block IS the whole
     filled prefix (pos 0, s == view length) and :func:`use_flash` routes
-    the shape to the kernel.  One device, so the reference's single-device
-    rule holds."""
+    the shape to the kernel.  On a mesh the kernel runs on this rank's
+    rows and heads, so the reference's single-device rule (a Pallas call
+    is opaque to its partitioner) has nothing to guard here."""
     if not (isinstance(pos, int) and pos == 0 and s == attn_len):
         return False
     return use_flash(s, s, cfg.head_dim)
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
-               kv_dtype: str = "native",
-               device=None) -> Dict[str, torch.Tensor]:
-    """Zeroed KV cache: k/v of [L, B, max_len, Hkv, D] on ``device``.
+               kv_dtype: str = "native", device=None,
+               kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Zeroed KV cache: k/v of [L, B, max_len, Hkv, D] on ``device``
+    (``kv_heads``: this rank's kv-heads on a mesh, else ``cfg.kv_heads``).
 
     ``kv_dtype="int8"``: int8 values plus an f32 scale per (layer, batch,
     position, kv-head), quantized over the head dim; zeroed scales make
     unfilled rows dequantize to exact zeros."""
     dev = resolve_device(device)
-    shape = (cfg.layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.layers, batch, max_len, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     if kv_dtype == "int8":
         return {
             "k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -84,7 +94,7 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _block_with_cache(cfg, cos, sin, pos: int, x, lp, ck, cv,
+def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
                       attn_len: Optional[int] = None, cks=None, cvs=None):
     """One block over cached keys/values; returns the new x.
 
@@ -95,11 +105,12 @@ def _block_with_cache(cfg, cos, sin, pos: int, x, lp, ck, cv,
     are quantized on insert and the causal path dequantizes the attended
     view.  The flash prefill attends over the exact fresh k/v instead, as
     in the reference."""
+    cfg = lay.cfg
     b, s, _ = x.shape
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    q = (y @ lp["wq"]).reshape(b, s, cfg.heads, cfg.head_dim)
-    k = (y @ lp["wk"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = (y @ lp["wv"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
+    q = (y @ lay.w(lp["wq"], 0)).reshape(b, s, lay.heads, cfg.head_dim)
+    k = lay.kv(y @ lay.w(lp["wk"], 0), b, s)
+    v = lay.kv(y @ lay.w(lp["wv"], 0), b, s)
     positions = torch.arange(pos, pos + s, device=x.device)
     q = apply_rope_at(q, cos, sin, positions)
     k = apply_rope_at(k, cos, sin, positions)
@@ -127,11 +138,13 @@ def _block_with_cache(cfg, cos, sin, pos: int, x, lp, ck, cv,
         a = flash_attention(q, k, v)
     else:
         a = causal_attention(q, ckv, cvv, q_offset=pos)
-    x = x + a.reshape(b, s, -1) @ lp["wo"]
+    x = x + comm.reduce_from(a.reshape(b, s, -1) @ lay.w(lp["wo"], 1),
+                             lay.tp)
 
     y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    gated = torch.nn.functional.silu(y @ lp["w_gate"]) * (y @ lp["w_up"])
-    return x + gated @ lp["w_down"]
+    gated = (torch.nn.functional.silu(y @ lay.w(lp["w_gate"], 0))
+             * (y @ lay.w(lp["w_up"], 0)))
+    return x + comm.reduce_from(gated @ lay.w(lp["w_down"], 1), lay.tp)
 
 
 def forward_with_cache(
@@ -142,15 +155,18 @@ def forward_with_cache(
     cfg: LlamaConfig,
     attn_len: Optional[int] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    layout: Optional[Layout] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(logits [B, s, vocab] f32, cache updated in place).  Serves both
     prefill (s = prompt length, pos = 0) and decode (s = 1).
 
     ``attn_len``: upper bound on the filled prefix (pos + s <= attn_len);
     None = the whole buffer.  ``rope``: the (cos, sin) tables over the
-    cache length, computed here when not given."""
+    cache length, computed here when not given.  ``layout``: this rank's
+    part of a sharded model (None: the whole model)."""
+    lay = layout or Layout(cfg)
     max_len = cache["k"].shape[2]
-    x = params["embed"][tokens].to(cfg.dtype)
+    x = lay.whole(params["embed"])[tokens].to(cfg.dtype)
     if rope is None:
         rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,
                            scaling=cfg.rope_scaling_dict, device=x.device)
@@ -160,11 +176,11 @@ def forward_with_cache(
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant \
             else (None, None)
         x = _block_with_cache(
-            cfg, cos, sin, pos, x, lp,
+            lay, cos, sin, pos, x, lp,
             cache["k"][i], cache["v"][i], attn_len, *scales,
         )
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
-    logits = (x @ params["lm_head"]).float()
+    logits = (x @ lay.whole(params["lm_head"])).float()
     return logits, cache
 
 
@@ -225,9 +241,13 @@ def generate(
     max_len: Optional[int] = None,
     decode_block: int = 256,
     kv_dtype: str = "native",
+    mesh=None,
 ) -> torch.Tensor:
     """Prompt + continuation, [B, S + max_new_tokens] int32, on the
-    params' device.  Greedy when ``temperature == 0`` (then ``generator``,
+    params' device.  On a ``mesh``, ``params`` are this rank's shards
+    (:func:`.llama.shard_params`) and ``prompt`` / the result its rows of
+    the batch (its coordinate along data x fsdp); sampling draws alike on
+    the ranks of one batch shard given generators seeded alike.  Greedy when ``temperature == 0`` (then ``generator``,
     ``top_k`` and ``top_p`` are unused).  ``kv_dtype="int8"`` block-
     quantizes the KV cache (see :func:`init_cache`).
 
@@ -241,12 +261,15 @@ def generate(
         raise ValueError(
             f"max_len {max_len} < prompt {s} + new {max_new_tokens}"
         )
-    cache = init_cache(cfg, b, max_len, kv_dtype, device=device)
+    # serving runs no ring: a seq axis replicates
+    lay = Layout(dataclasses.replace(cfg, seq_parallel=False), mesh)
+    cache = init_cache(cfg, b, max_len, kv_dtype, device=device,
+                       kv_heads=lay.kv_heads)
     rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,
                        scaling=cfg.rope_scaling_dict, device=device)
     # prefill attends over its own keys only, not the whole buffer
     logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
-                                       attn_len=s, rope=rope)
+                                       attn_len=s, rope=rope, layout=lay)
     tok = _sample(logits[:, -1], temperature, generator, top_k, top_p)
 
     toks = [prompt.to(torch.int32)]
@@ -263,7 +286,7 @@ def generate(
             toks.append(tok[:, None])
             logits, cache = forward_with_cache(
                 params, tok[:, None].long(), cache, s + done, cfg,
-                attn_len=attn_len, rope=rope,
+                attn_len=attn_len, rope=rope, layout=lay,
             )
             tok = _sample(logits[:, -1], temperature, generator, top_k,
                           top_p)
@@ -281,17 +304,19 @@ def make_generate_fn(
     top_p: float = 1.0,
     decode_block: int = 256,
     kv_dtype: str = "native",
+    mesh=None,
 ):
     """``fn(params, prompt, generator=None)`` with the decode settings
     bound (no compilation step: PyTorch runs eagerly, under
-    ``torch.inference_mode``)."""
+    ``torch.inference_mode``); on a ``mesh``, this rank's shards and rows
+    (see :func:`generate`)."""
 
     def fn(params: Params, prompt: torch.Tensor,
            generator: Optional[torch.Generator] = None) -> torch.Tensor:
         return generate(
             params, prompt, cfg, max_new_tokens, temperature=temperature,
             top_k=top_k, top_p=top_p, generator=generator,
-            decode_block=decode_block, kv_dtype=kv_dtype,
+            decode_block=decode_block, kv_dtype=kv_dtype, mesh=mesh,
         )
 
     return fn

@@ -21,9 +21,11 @@ import torch
 
 from .. import resolve_device
 from ..ops import flash_attention as fa
-from ..ops.attention import causal_attention
+from ..ops.attention import causal_attention, repeat_kv
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, rope_angles
+from ..parallel import comm
+from ..parallel.ring import _gqa_repeat_factor, make_ring_attn_fn
 from . import training
 
 Params = Dict[str, Any]
@@ -48,6 +50,11 @@ class LlamaConfig:
     # training.remat's policy names: "dots", "ffn", "ffn_lite",
     # "ffn_offload", "full"
     remat_policy: str = "dots"
+    # on a mesh with a seq axis: keep the activations sequence-sharded
+    # through the layer (each rank its chunk of the sequence, ring
+    # attention between), where False computes everything but attention
+    # replicated over the seq ranks
+    seq_parallel: bool = False
     # >0: training cross entropy in sequence chunks of this size, so the
     # [B, S, vocab] logits are never held at once
     # (training.chunked_next_token_xent); 0 = full logits
@@ -199,6 +206,192 @@ def params_to(params: Params, device) -> Params:
     }
 
 
+# -- sharding -----------------------------------------------------------------
+
+
+def param_specs(cfg: LlamaConfig) -> Params:
+    """Per leaf, the mesh axis each dim is sharded over (None: whole), the
+    reference's ``param_specs``: tensor parallelism on the head / ffn
+    dims, fsdp on the complementary dim, the stacked-layer dim whole."""
+    return {
+        "embed": ("fsdp", "tensor"),
+        "layers": {
+            "wq": (None, "fsdp", "tensor"),
+            "wk": (None, "fsdp", "tensor"),
+            "wv": (None, "fsdp", "tensor"),
+            "wo": (None, "tensor", "fsdp"),
+            "w_gate": (None, "fsdp", "tensor"),
+            "w_up": (None, "fsdp", "tensor"),
+            "w_down": (None, "tensor", "fsdp"),
+            "ln_attn": (None, None),
+            "ln_mlp": (None, None),
+        },
+        "ln_final": (None,),
+        "lm_head": ("fsdp", "tensor"),
+    }
+
+
+def _zip_specs(params: Params, specs: Params, fn) -> Params:
+    return {k: _zip_specs(v, specs[k], fn) if isinstance(v, Mapping)
+            else fn(v, specs[k]) for k, v in params.items()}
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """This rank's shard of every leaf of a whole tree (each a contiguous
+    copy, so the whole tree can be freed): dim i cut into
+    ``mesh.size(axis)`` chunks where :func:`param_specs` names an axis,
+    this rank's chunk kept.  Raises where a dim does not divide."""
+    def shard(leaf, spec):
+        for dim, axis in enumerate(spec):
+            if axis is None or mesh.size(axis) == 1:
+                continue
+            n = mesh.size(axis)
+            if leaf.shape[dim] % n:
+                raise ValueError(
+                    f"dim {dim} of a {tuple(leaf.shape)} leaf does not "
+                    f"shard over the {n} ranks of axis {axis!r}"
+                )
+            leaf = leaf.chunk(n, dim=dim)[mesh.coord[axis]]
+        return leaf.contiguous()
+
+    return _zip_specs(params, param_specs(cfg), shard)
+
+
+def gather_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """The whole tree from every rank's shards (:func:`shard_params`'s
+    inverse), on every rank; for tests and checks."""
+    def gather(leaf, spec):
+        leaf = leaf.detach()
+        for dim, axis in enumerate(spec):
+            if axis is not None:
+                leaf = comm.all_gather(leaf, mesh.group(axis), dim)
+        return leaf
+
+    return _zip_specs(params, param_specs(cfg), gather)
+
+
+class Layout:
+    """Where this process's part of the model lives, and the collectives
+    that join it to the rest: the whole model on one device (``mesh``
+    None: every collective the identity, the single-device path), or this
+    rank's shards of :func:`param_specs` on a mesh of data x fsdp x seq x
+    tensor ranks.
+
+    On a mesh, each layer leaf's fsdp dim is gathered per layer in the
+    forward and reduce-scattered in the backward (:func:`.comm.gather_sum`);
+    ``wq``, ``wk``, ``wv``, ``w_gate`` and ``w_up`` are column-parallel on
+    ``tensor`` (their input entered with :func:`.comm.copy_to`), ``wo`` and
+    ``w_down`` row-parallel (their partial sums all-reduced with
+    :func:`.comm.reduce_from`); ``embed`` and ``lm_head`` are gathered
+    whole before use.  The batch is sharded over data x fsdp.  With a seq
+    axis and ``attn_fn`` (ring or Ulysses), each rank either computes all
+    but attention over the whole sequence, replicated over the seq ranks,
+    splitting q/k/v before ``attn_fn`` and gathering its output after
+    (``cfg.seq_parallel`` False), or keeps its chunk of the sequence
+    through the layer (True); without ``attn_fn`` attention runs on the
+    whole local sequence, as the reference's mesh attention does outside
+    the ring.  Pipeline and expert axes are later slices."""
+
+    def __init__(self, cfg: LlamaConfig, mesh=None, attn_fn=None):
+        self.cfg, self.mesh = cfg, mesh
+        self.attn = attn_fn or functools.partial(attention, cfg)
+        if mesh is None:
+            self.fsdp = self.tp = self.sp = None
+            self.heads, self.kv_heads, self.kv_rep = cfg.heads, cfg.kv_heads, 1
+            self.seq_shards, self.seq_index, self.seq_split = 1, 0, False
+            self.batch_axes, self.loss_scale = (), 1.0
+            return
+        for axis in ("pipe", "expert"):
+            if mesh.size(axis) > 1:
+                raise ValueError(
+                    f"the dense Llama step has no {axis!r} axis in this port "
+                    f"yet (ROADMAP.md, queue 1 item 3); got {mesh.shape}"
+                )
+        t, n = mesh.size("tensor"), mesh.size("seq")
+        if cfg.heads % t or cfg.ffn % t:
+            raise ValueError(
+                f"tensor parallelism over {t} ranks needs heads "
+                f"({cfg.heads}) and ffn ({cfg.ffn}) divisible by {t}"
+            )
+        self.fsdp = mesh.group("fsdp")
+        self.tp = mesh.group("tensor")
+        self.sp = mesh.group("seq")
+        self.heads = cfg.heads // t
+        # kv heads that do not divide the tensor shards are gathered,
+        # repeated by the reference's ring factor and re-split
+        self.kv_rep = 1 if cfg.kv_heads % t == 0 else _gqa_repeat_factor(
+            cfg.heads, cfg.kv_heads, t)
+        self.kv_heads = cfg.kv_heads * self.kv_rep // t
+        sp = cfg.seq_parallel and n > 1
+        if sp and attn_fn is None:
+            self.attn = make_ring_attn_fn(mesh)
+        self.seq_split = n > 1 and attn_fn is not None and not sp
+        self.seq_shards = n if sp else 1
+        self.seq_index = mesh.coord["seq"] if sp else 0
+        self.batch_axes = ("data", "fsdp") + (("seq",) if sp else ())
+        self.loss_scale = 1.0 / (mesh.size("data", "fsdp") * self.seq_shards)
+
+    # -- parameters
+
+    def w(self, leaf: torch.Tensor, fsdp_dim: int) -> torch.Tensor:
+        """A layer leaf with its fsdp dim gathered."""
+        return comm.gather_sum(leaf, self.fsdp, fsdp_dim)
+
+    def whole(self, leaf: torch.Tensor) -> torch.Tensor:
+        """``embed`` or ``lm_head`` gathered whole (fsdp dim 0, tensor 1)."""
+        return comm.gather(comm.gather_sum(leaf, self.fsdp, 0), self.tp, 1)
+
+    def kv(self, cols: torch.Tensor, b: int, s: int) -> torch.Tensor:
+        """K or V of this rank's heads from its column-parallel output."""
+        hd = self.cfg.head_dim
+        if self.kv_rep == 1:
+            return cols.reshape(b, s, self.kv_heads, hd)
+        full = comm.gather(cols, self.tp, 2).reshape(b, s, self.cfg.kv_heads,
+                                                     hd)
+        return comm.split(repeat_kv(full, self.kv_rep), self.tp, 2)
+
+    # -- the batch and the loss
+
+    def local_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        """This rank's [B, s + 1] window of its rows [B, S + 1]: all of
+        it, or under sequence parallelism its chunk and the next token."""
+        if self.seq_shards == 1:
+            return tokens
+        c = (tokens.shape[1] - 1) // self.seq_shards
+        return tokens[:, self.seq_index * c:(self.seq_index + 1) * c + 1]
+
+    def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The global token mean from every rank's share of it."""
+        if self.mesh is None:
+            return loss
+        return comm.all_reduce(loss, self.mesh.group(*self.batch_axes))
+
+    def reduce_grads(self, params: Params,
+                     grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Gradients (in ``params``' leaf order) summed over the
+        batch-splitting axes each leaf is whole on (over fsdp the
+        backward's reduce-scatter already summed the sharded leaves), one
+        all-reduce per group and dtype."""
+        if self.mesh is None:
+            return grads
+        specs = list(training.tree_leaves(
+            _zip_specs(params, param_specs(self.cfg), lambda _, s: s)))
+        buckets: Dict[tuple, List[int]] = {}
+        for i, spec in enumerate(specs):
+            axes = tuple(a for a in self.batch_axes if a not in spec)
+            if self.mesh.size(*axes) > 1:
+                buckets.setdefault((axes, grads[i].dtype), []).append(i)
+        grads = list(grads)
+        for (axes, _), idx in buckets.items():
+            flat = comm.all_reduce(
+                torch.cat([grads[i].reshape(-1) for i in idx]),
+                self.mesh.group(*axes))
+            for i, part in zip(idx, flat.split([grads[i].numel()
+                                                for i in idx])):
+                grads[i] = part.view(grads[i].shape)
+        return grads
+
+
 def unbind_layers(params: Params) -> List[Dict[str, torch.Tensor]]:
     """Every layer's slice of the stacked leaves, from one ``unbind`` per
     leaf: its backward is one stack of the layer gradients, where indexing
@@ -220,30 +413,38 @@ def attention(cfg: LlamaConfig, q, k, v) -> torch.Tensor:
     return causal_attention(q, k, v)
 
 
-def _attn_half(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
+def _attn_half(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
     """The attention half of a block: the post-attention residual
     (the reference's ``resid_mid``).  x: [B, S, H]."""
+    cfg = lay.cfg
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
     b, s, _ = y.shape
-    q = (y @ lp["wq"]).reshape(b, s, cfg.heads, cfg.head_dim)
-    k = (y @ lp["wk"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = (y @ lp["wv"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    a = attention(cfg, q, k, v)
-    return x + a.reshape(b, s, -1) @ lp["wo"]
+    y = comm.copy_to(y, lay.tp)
+    q = (y @ lay.w(lp["wq"], 0)).reshape(b, s, lay.heads, cfg.head_dim)
+    k = lay.kv(y @ lay.w(lp["wk"], 0), b, s)
+    v = lay.kv(y @ lay.w(lp["wv"], 0), b, s)
+    q = apply_rope(q, cos, sin, lay.seq_index * s)
+    k = apply_rope(k, cos, sin, lay.seq_index * s)
+    if lay.seq_split:
+        q, k, v = (comm.split(t, lay.sp, 1) for t in (q, k, v))
+    a = lay.attn(q, k, v)
+    if lay.seq_split:
+        a = comm.gather(a, lay.sp, 1)
+    out = a.reshape(b, s, -1) @ lay.w(lp["wo"], 1)
+    return x + comm.reduce_from(out, lay.tp)
 
 
-def _layer(cfg: LlamaConfig, cos, sin, x, lp) -> torch.Tensor:
+def _layer(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
     """One transformer block.  x: [B, S, H]; lp: this layer's params."""
-    x = _attn_half(cfg, cos, sin, x, lp)
-    y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    gate = y @ lp["w_gate"]
-    up = y @ lp["w_up"]
-    return x + (torch.nn.functional.silu(gate) * up) @ lp["w_down"]
+    x = _attn_half(lay, cos, sin, x, lp)
+    y = comm.copy_to(rms_norm(x, lp["ln_mlp"], lay.cfg.rms_eps), lay.tp)
+    gate = y @ lay.w(lp["w_gate"], 0)
+    up = y @ lay.w(lp["w_up"], 0)
+    out = (torch.nn.functional.silu(gate) * up) @ lay.w(lp["w_down"], 1)
+    return x + comm.reduce_from(out, lay.tp)
 
 
-def _remat_block(cfg: LlamaConfig, cos, sin):
+def _remat_block(lay: Layout, cos, sin):
     """A block under ``cfg.remat_policy``.  "ffn" / "ffn_lite" keep the
     reference's named tensors: the attention half is recomputed from the
     block's input, and the FFN half saves its input (``resid_mid``) and
@@ -252,68 +453,108 @@ def _remat_block(cfg: LlamaConfig, cos, sin):
     projection), as XLA's ``save_only_these_names`` does.  "ffn_offload"
     saves "ffn"'s tensors in one :class:`.training.HostStash` for the
     pass."""
+    cfg = lay.cfg
     policy = cfg.remat_policy
     if policy not in training.SAVED_FFN:
-        return training.remat(functools.partial(_layer, cfg, cos, sin),
+        return training.remat(functools.partial(_layer, lay, cos, sin),
                               policy)
-    attn = training.remat(functools.partial(_attn_half, cfg, cos, sin),
+    attn = training.remat(functools.partial(_attn_half, lay, cos, sin),
                           "full")
     stash = training.HostStash() if policy == "ffn_offload" else None
 
     def block(x, lp):
         return training.swiglu_residual(
-            attn(x, lp), lp["ln_mlp"], lp["w_gate"], lp["w_up"],
-            lp["w_down"], cfg.rms_eps, policy, stash)
+            attn(x, lp), lp["ln_mlp"], lay.w(lp["w_gate"], 0),
+            lay.w(lp["w_up"], 0), lay.w(lp["w_down"], 1), cfg.rms_eps,
+            policy, stash, lay.tp)
 
     return block
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor,
-                   cfg: LlamaConfig) -> torch.Tensor:
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+                   layout: Optional[Layout] = None) -> torch.Tensor:
     """Final-norm hidden states [B, S, hidden]: everything before the
     vocab projection.  With ``cfg.remat`` and grad enabled, each layer runs
-    under the configured remat policy."""
-    x = torch.nn.functional.embedding(tokens, params["embed"]).to(cfg.dtype)
-    cos, sin = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                           scaling=cfg.rope_scaling_dict, device=x.device)
+    under the configured remat policy.  ``layout``: this rank's part of a
+    sharded model (None: the whole model on one device)."""
+    lay = layout or Layout(cfg)
+    x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
+    x = x.to(cfg.dtype)
+    cos, sin = rope_angles(tokens.shape[1] * lay.seq_shards, cfg.head_dim,
+                           cfg.rope_theta, scaling=cfg.rope_scaling_dict,
+                           device=x.device)
     if cfg.remat and torch.is_grad_enabled():
-        block = _remat_block(cfg, cos, sin)
+        block = _remat_block(lay, cos, sin)
     else:
-        block = functools.partial(_layer, cfg, cos, sin)
+        block = functools.partial(_layer, lay, cos, sin)
     for lp in unbind_layers(params):
         x = block(x, lp)
     return rms_norm(x, params["ln_final"], cfg.rms_eps)
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            layout: Optional[Layout] = None) -> torch.Tensor:
     """Logits [B, S, vocab] f32 (a matmul in cfg.dtype, then widened)."""
-    x = forward_hidden(params, tokens, cfg)
-    return (x @ params["lm_head"]).float()
+    lay = layout or Layout(cfg)
+    x = forward_hidden(params, tokens, cfg, lay)
+    return (x @ lay.whole(params["lm_head"])).float()
 
 
-def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: LlamaConfig) -> torch.Tensor:
-    """Next-token cross entropy over [B, S]; tokens [B, S+1]."""
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
+            layout: Optional[Layout] = None) -> torch.Tensor:
+    """Next-token cross entropy over [B, S]; tokens [B, S+1].  On a mesh,
+    ``tokens`` are this rank's rows and the result its share of the global
+    token mean (:meth:`Layout.reduce_loss` sums the shares)."""
+    lay = layout or Layout(cfg)
+    tokens = lay.local_tokens(tokens)
     if cfg.xent_chunk > 0:
-        x = forward_hidden(params, tokens[:, :-1], cfg)
-        return training.chunked_next_token_xent(
-            x, params["lm_head"], tokens, cfg.xent_chunk)
-    logits = forward(params, tokens[:, :-1], cfg)
-    return training.next_token_xent(logits, tokens)
+        x = forward_hidden(params, tokens[:, :-1], cfg, lay)
+        loss = training.chunked_next_token_xent(
+            x, lay.whole(params["lm_head"]), tokens, cfg.xent_chunk)
+    else:
+        logits = forward(params, tokens[:, :-1], cfg, lay)
+        loss = training.next_token_xent(logits, tokens)
+    return loss if lay.loss_scale == 1.0 else loss * lay.loss_scale
 
 
-def make_train_step(cfg: LlamaConfig, optimizer=None, device=None):
-    """(step, init_all, optimizer) on one device (``device`` None means
-    CUDA, and raises without it): ``step(params, opt_state, tokens) ->
+def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
+                    mesh=None, attn_fn=None):
+    """(step, init_all, optimizer): ``step(params, opt_state, tokens) ->
     (params, opt_state, loss)`` with the parameters and moments updated in
     place; ``init_all(generator) -> (params, opt_state)``, the generator
-    living on the device.  ``optimizer``: an optimizer object,
-    ``"adam8bit"`` (``optim8bit.adamw8bit()``) or None
-    (``training.adamw(3e-4, weight_decay=0.1)``)."""
+    living on the device.  ``device`` None means CUDA, and raises without
+    it.  ``optimizer``: an optimizer object, ``"adam8bit"``
+    (``optim8bit.adamw8bit()``) or None (``training.adamw(3e-4,
+    weight_decay=0.1)``).
+
+    ``mesh`` (a :class:`..parallel.mesh.Mesh`) shards the step over its
+    ranks as :class:`Layout` says: ``init_all`` draws the whole tree from
+    the generator, as the single-device step does, and keeps this rank's
+    shards (so a seed gives the same parameters at every world size);
+    ``step`` takes this rank's rows of the batch (its coordinate along
+    data x fsdp) and returns the global token mean.  ``attn_fn``: the
+    sequence-parallel attention over the seq axis
+    (:func:`..parallel.ring.make_ring_attn_fn`,
+    :func:`..parallel.ulysses.make_ulysses_attn_fn`)."""
     dev = resolve_device(device)
+    if mesh is None:
+        return training.make_train_step(
+            lambda params, tokens: loss_fn(params, tokens, cfg),
+            lambda generator: init_params(cfg, generator, dev),
+            optimizer,
+        )
+    if dev.type != mesh.device.type:
+        raise ValueError(f"device {dev} is not the mesh's {mesh.device}")
+    if optimizer == "adam8bit" and mesh.plan.size() > 1:
+        raise ValueError(
+            "adamw8bit on a mesh of more than one rank is a later slice "
+            "(ROADMAP.md, queue 1 item 3)"
+        )
+    lay = Layout(cfg, mesh, attn_fn)
     return training.make_train_step(
-        lambda params, tokens: loss_fn(params, tokens, cfg),
-        lambda generator: init_params(cfg, generator, dev),
-        optimizer,
+        lambda params, tokens: loss_fn(params, tokens, cfg, lay),
+        lambda generator: shard_params(
+            init_params(cfg, generator, mesh.device), cfg, mesh),
+        optimizer, reduce_grads=lay.reduce_grads,
+        reduce_loss=lay.reduce_loss,
     )

@@ -1,16 +1,18 @@
-"""The single-device train step: loss math, remat policies, AdamW.
+"""The train step: loss math, remat policies, AdamW.
 
-Counterpart of ``tpu_network_operator/models/training.py``.  One device,
-no mesh: :func:`make_train_step` keeps the reference's contract
-(``step(params, opt_state, tokens) -> (params, opt_state, loss)``), and
-updates the parameters and the moments in place, which is what the
-reference's donation of both buffers buys on the TPU.
+Counterpart of ``tpu_network_operator/models/training.py``.
+:func:`make_train_step` keeps the reference's contract (``step(params,
+opt_state, tokens) -> (params, opt_state, loss)``), and updates the
+parameters and the moments in place, which is what the reference's
+donation of both buffers buys on the TPU.  On a mesh the model's layout
+supplies the gradient and loss reductions (``models/llama.py``
+``Layout``); the optimizer steps each rank's shards as they are.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -20,6 +22,7 @@ from torch.utils.checkpoint import (
 )
 
 from ..ops.norms import rms_norm
+from ..parallel import comm
 
 REMAT_POLICIES = ("dots", "ffn", "ffn_lite", "ffn_offload", "full")
 # the FFN intermediates each named policy keeps beside the post-attention
@@ -147,12 +150,14 @@ class _SwiGLUResidual(torch.autograd.Function):
     gradients are remat=False's bits."""
 
     @staticmethod
-    def forward(ctx, x, ln, w_gate, w_up, w_down, eps, save_up, stash):
+    def forward(ctx, x, ln, w_gate, w_up, w_down, eps, save_up, stash,
+                group):
         y = rms_norm(x, ln, eps)
         gate = y @ w_gate
         up = y @ w_up
-        out = x + (torch.nn.functional.silu(gate) * up) @ w_down
-        ctx.eps, ctx.stash = eps, stash
+        out = x + comm.all_reduce(
+            (torch.nn.functional.silu(gate) * up) @ w_down, group)
+        ctx.eps, ctx.stash, ctx.group = eps, stash, group
         if stash is not None:
             ctx.key = stash.put((x, gate, up))
             ctx.save_for_backward(ln, w_gate, w_up, w_down)
@@ -180,24 +185,32 @@ class _SwiGLUResidual(torch.autograd.Function):
         dw_down = h.detach().reshape(-1, h.shape[-1]).t().mm(g2)
         dgate, dup = torch.autograd.grad(h, (gd, ud), dh.view(h.shape))
         dgate2, dup2 = (t.reshape(-1, t.shape[-1]) for t in (dgate, dup))
-        dy = dgate2.mm(w_gate.t()) + dup2.mm(w_up.t())
+        dy = comm.all_reduce(dgate2.mm(w_gate.t()) + dup2.mm(w_up.t()),
+                             ctx.group)
         dx, dln = torch.autograd.grad(y, (xd, lnd), dy.view(y.shape))
         return (g + dx, dln, y2.t().mm(dgate2), y2.t().mm(dup2), dw_down,
-                None, None, None)
+                None, None, None, None)
 
 
 def swiglu_residual(x: torch.Tensor, ln: torch.Tensor, w_gate: torch.Tensor,
                     w_up: torch.Tensor, w_down: torch.Tensor, eps: float,
-                    policy: str, stash: HostStash = None) -> torch.Tensor:
+                    policy: str, stash: HostStash = None,
+                    group=None) -> torch.Tensor:
     """The dense layer's FFN half, x + SwiGLU(rms_norm(x, ln)), keeping
     :data:`SAVED_FFN` ``[policy]`` for its backward (see
     :class:`_SwiGLUResidual`): under "ffn_offload", in ``stash``'s pinned
     host memory when ``x`` is a CUDA tensor, and on the device as "ffn"
-    otherwise (the reference keeps them in device memory off the TPU)."""
+    otherwise (the reference keeps them in device memory off the TPU).
+
+    ``group``: the tensor-parallel group whose ranks hold column shards of
+    ``w_gate`` / ``w_up`` and row shards of ``w_down``; the down
+    projection is then a partial sum, all-reduced before the residual
+    add, and so is the gradient of the normed input (Megatron's g and f
+    around the pair)."""
     offload = policy == "ffn_offload" and x.is_cuda
     return _SwiGLUResidual.apply(x, ln, w_gate, w_up, w_down, eps,
                                  "ffn_up" in SAVED_FFN[policy],
-                                 stash if offload else None)
+                                 stash if offload else None, group)
 
 
 # -- loss ---------------------------------------------------------------------
@@ -369,6 +382,8 @@ def make_train_step(
     loss_fn: Callable,             # (params, tokens) -> scalar loss
     init_fn: Callable,             # generator -> params
     optimizer=None,
+    reduce_grads: Optional[Callable] = None,
+    reduce_loss: Optional[Callable] = None,
 ):
     """(step, init_all, optimizer) with the reference's contract:
     ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, the
@@ -376,7 +391,14 @@ def make_train_step(
     counterpart of donating both); ``init_all(generator) -> (params,
     opt_state)``.  ``optimizer`` is an :class:`AdamW`, an
     :class:`.optim8bit.AdamW8bit`, ``"adam8bit"`` (``adamw8bit()`` with the
-    library defaults) or None (``adamw(3e-4, weight_decay=0.1)``)."""
+    library defaults) or None (``adamw(3e-4, weight_decay=0.1)``).
+
+    On a mesh, ``loss_fn`` gives this rank's share of the loss,
+    ``reduce_grads(params, grads)`` sums the gradients (in
+    :func:`tree_leaves` order) over the ranks that share each leaf before
+    the update, and
+    ``reduce_loss`` sums the returned loss over the ranks that split the
+    batch; both are None on one device."""
     if optimizer == "adam8bit":
         from .optim8bit import adamw8bit
 
@@ -389,8 +411,12 @@ def make_train_step(
             p.requires_grad_(True)
         loss = loss_fn(params, tokens)
         grads = torch.autograd.grad(loss, leaves)
+        if reduce_grads is not None:
+            grads = reduce_grads(params, grads)
         params, opt_state = optimizer.apply(params, grads, opt_state)
-        return params, opt_state, loss.detach()
+        loss = loss.detach()
+        return params, opt_state, (loss if reduce_loss is None
+                                   else reduce_loss(loss))
 
     def init_all(generator: torch.Generator):
         params = init_fn(generator)

@@ -1,0 +1,24 @@
+"""Multi-GPU layouts of the port: the job mesh over torch.distributed
+ranks (one GPU per rank), the collectives of the sharded model, and
+sequence parallelism (ring and Ulysses attention).
+
+Counterpart of ``tpu_network_operator/parallel/``.  The pipeline
+schedules, the collectives sweep and expert parallelism are later slices
+(ROADMAP.md, queue 1 item 3).
+"""
+
+from .mesh import (  # noqa: F401
+    AXES,
+    Mesh,
+    MeshPlan,
+    dcn_collective,
+    init_process_group,
+    make_mesh,
+    mesh_from_bootstrap,
+    plan_axes,
+    plan_block,
+    plan_from_bootstrap,
+    planned_axis_order,
+    planned_ring_index,
+    validate_axis_order,
+)

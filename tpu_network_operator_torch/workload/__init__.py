@@ -2,7 +2,9 @@
 
 ``python -m tpu_network_operator_torch.workload <subcommand>``, on one
 device (``--device``, default cuda; ``cpu`` runs the kernels' plain
-versions), with random weights:
+versions) or one process per device over a mesh (``--bootstrap``, or a
+launcher's ``RANK`` / ``WORLD_SIZE`` environment; ``--tensor``, ``--seq``,
+with fsdp taking the rest), with random weights:
 
 * ``generate`` -- KV-cache decode throughput (tokens/sec) of a Llama-3
   preset;
@@ -16,8 +18,9 @@ versions), with random weights:
   (``--hf-path``) as a step-0 train checkpoint plus its ``cfg.json``.
 
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the timed
-region.  The mesh flags, expert parallelism, the collectives sweep and the
-exec bench come with later slices.
+region.  Pipeline and expert parallelism, the MoE, adamw8bit and
+checkpoints on a mesh of more than one process, the collectives sweep and
+the exec bench come with later slices.
 """
 
 from .cli import build_parser, main

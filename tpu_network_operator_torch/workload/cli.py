@@ -19,6 +19,19 @@ def _device_flags(p: argparse.ArgumentParser) -> None:
                         "DIR/<subcommand>.trace.json")
 
 
+def _mesh_flags(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--bootstrap", default=None,
+                   help="the agent's jax-coordinator.json: the process "
+                        "group's rendezvous, rank and world (one process "
+                        "per GPU); without it, a launcher's RANK / "
+                        "WORLD_SIZE / MASTER_ADDR environment, or one "
+                        "process")
+    p.add_argument("--tensor", type=int, default=1)
+    p.add_argument("--seq", type=int, default=1)
+    p.add_argument("--expert", type=int, default=1)
+    p.add_argument("--pipe", type=int, default=1)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from . import __doc__ as pkg_doc
 
@@ -31,6 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     g = sub.add_parser("generate", help="decode throughput")
     _device_flags(g)
+    _mesh_flags(g)
     g.add_argument("--preset", default="tiny", choices=LLAMA_PRESET_NAMES)
     g.add_argument("--batch", type=int, default=4)
     g.add_argument("--prompt-len", type=int, default=16)
@@ -51,6 +65,7 @@ def build_parser() -> argparse.ArgumentParser:
 
     t = sub.add_parser("train", help="training throughput")
     _device_flags(t)
+    _mesh_flags(t)
     t.add_argument("--model", choices=["llama", "moe"], default="llama")
     t.add_argument("--preset", default="tiny",
                    help="the model's preset (llama: %s; moe: tiny, small, "
@@ -58,6 +73,18 @@ def build_parser() -> argparse.ArgumentParser:
     t.add_argument("--steps", type=int, default=10)
     t.add_argument("--batch", type=int, default=8)
     t.add_argument("--seq-len", type=int, default=128)
+    t.add_argument("--sp-impl", choices=["ring", "ulysses"], default="ring",
+                   help="sequence-parallel attention when --seq > 1: ring "
+                        "(K/V chunks travel round the ring) or ulysses "
+                        "(all-to-alls between sequence and heads)")
+    t.add_argument("--microbatches", type=int, default=4,
+                   help="pipeline microbatches (--pipe > 1: a later slice)")
+    t.add_argument("--pp-schedule", default="gpipe",
+                   choices=["gpipe", "1f1b", "interleaved"],
+                   help="pipeline schedule (--pipe > 1: a later slice)")
+    t.add_argument("--virtual-stages", type=int, default=2,
+                   help="layer chunks per device for --pp-schedule="
+                        "interleaved (a later slice)")
     t.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="memmapped token file (uint16/uint32); default: "
                         "synthetic fixed batch")
@@ -79,6 +106,7 @@ def build_parser() -> argparse.ArgumentParser:
         "convert", help="import an HF Llama or Mixtral checkpoint into a "
                         "train checkpoint (+cfg.json sidecar)")
     _device_flags(cv)
+    _mesh_flags(cv)
     cv.add_argument("--hf-path", required=True,
                     help="local HF checkpoint directory (config.json and "
                          "*.safetensors or pytorch_model*.bin)")

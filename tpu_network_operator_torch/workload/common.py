@@ -1,16 +1,23 @@
-"""Shared plumbing for the workload subcommands: result emission, model
-presets and ``--profile`` (the port's own copies of the reference's
-helpers)."""
+"""Shared plumbing for the workload subcommands: the process group and
+the mesh, result emission, model presets and ``--profile`` (the port's own
+copies of the reference's helpers)."""
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import json
 import os
 import sys
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from .. import resolve_device
+
+# where the combinations this slice does not shard are listed
+LATER_SLICE = "ROADMAP.md, queue 1 item 3"
 
 
 def log(msg: str) -> None:
@@ -85,3 +92,74 @@ def maybe_profile(directory: Optional[str], name: str,
     path = os.path.join(directory, f"{name}.trace.json")
     prof.export_chrome_trace(path)
     log(f"profile of {name} written to {path}")
+
+
+def init_distributed(bootstrap_path: Optional[str], device) -> Tuple:
+    """(bootstrap config or None, this process's device), after starting
+    the process group where there is one: from the agent's bootstrap file
+    (``--bootstrap``; its job lock held for the life of the process, as
+    the agent's drain expects), or from a launcher's environment
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
+    ``MASTER_PORT``, as torchrun sets them), one process per GPU.  Neither:
+    one process, no group.  The backend follows ``device``: NCCL for
+    CUDA, gloo for the CPU."""
+    from ..bootstrap import acquire_job_lock, read_bootstrap
+    from ..parallel.mesh import BACKENDS, DEFAULT_TIMEOUT, init_process_group
+
+    dev = resolve_device(device)
+    local_rank = int(os.environ.get("LOCAL_RANK", 0))
+    if bootstrap_path:
+        cfg = read_bootstrap(bootstrap_path)
+        lock = acquire_job_lock(bootstrap_path)
+        atexit.register(lock.release)
+        dev = init_process_group(
+            cfg, dev, local_rank=local_rank,
+            local_world=int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+        log(f"process group ({dist.get_backend()}): rank {dist.get_rank()}/"
+            f"{dist.get_world_size()}, coordinator "
+            f"{cfg.coordinator_address}")
+        return cfg, dev
+    if "WORLD_SIZE" not in os.environ:
+        return None, dev
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank)
+        torch.cuda.set_device(dev)
+    dist.init_process_group(BACKENDS[dev.type], init_method="env://",
+                            timeout=DEFAULT_TIMEOUT)
+    return None, dev
+
+
+def build_mesh(args, bootstrap, device):
+    """The job mesh of the flags over the process group (None: one
+    process and no group, the single-device path)."""
+    from ..parallel.mesh import make_mesh, mesh_from_bootstrap, plan_axes
+
+    kw = dict(tensor=args.tensor, seq=args.seq, expert=args.expert,
+              pipe=args.pipe)
+    if not dist.is_initialized():
+        plan_axes(1, **kw)          # raises where the flags need more ranks
+        return None
+    if bootstrap is not None:
+        return mesh_from_bootstrap(bootstrap, device, **kw)
+    return make_mesh(plan_axes(dist.get_world_size(), **kw), device)
+
+
+def mesh_report(mesh, device) -> dict:
+    """The JSON line's ``mesh``: the axis sizes, the world and the device."""
+    if mesh is None:
+        return {"devices": 1, "device": str(device)}
+    return {**mesh.shape, "devices": mesh.plan.size(),
+            "device": str(device)}
+
+
+def batch_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's rows of a global batch: its shard along data x fsdp."""
+    if mesh is None:
+        return tokens
+    n = mesh.size("data", "fsdp")
+    if tokens.shape[0] % n:
+        raise SystemExit(
+            f"batch {tokens.shape[0]} does not shard over the {n} ranks of "
+            "data x fsdp"
+        )
+    return tokens.chunk(n)[mesh.index("data", "fsdp")]

@@ -1,4 +1,5 @@
-"""``workload generate``: KV-cache decode throughput on one device."""
+"""``workload generate``: KV-cache decode throughput on one device or
+over a mesh of data x fsdp x tensor ranks."""
 
 from __future__ import annotations
 
@@ -6,24 +7,32 @@ import time
 
 import torch
 
-from .. import resolve_device
-from .common import (emit, llama_presets, log, maybe_profile, pick_preset,
-                     sync)
+from .common import (LATER_SLICE, batch_rows, build_mesh, emit,
+                     init_distributed, llama_presets, log, maybe_profile,
+                     mesh_report, pick_preset, sync)
 
 
 def cmd_generate(args) -> int:
     from ..models.generate import make_generate_fn
-    from ..models.llama import init_params
+    from ..models.llama import init_params, shard_params
 
-    device = resolve_device(args.device)
+    if args.pipe > 1 or args.expert > 1:
+        raise SystemExit(
+            f"serving over --pipe / --expert: not in the port yet "
+            f"({LATER_SLICE})"
+        )
+    bootstrap, device = init_distributed(args.bootstrap, args.device)
+    mesh = build_mesh(args, bootstrap, device)
     cfg = pick_preset(llama_presets(), args.preset, "llama")
     params = init_params(cfg, torch.Generator(device).manual_seed(0), device)
-    prompt = torch.ones((args.batch, args.prompt_len), dtype=torch.int64,
-                        device=device)
+    if mesh is not None:
+        params = shard_params(params, cfg, mesh)
+    prompt = batch_rows(torch.ones((args.batch, args.prompt_len),
+                                   dtype=torch.int64, device=device), mesh)
     gen = make_generate_fn(
         cfg, args.max_new_tokens, temperature=args.temperature,
         top_k=args.top_k, top_p=args.top_p,
-        decode_block=args.decode_block, kv_dtype=args.kv_dtype,
+        decode_block=args.decode_block, kv_dtype=args.kv_dtype, mesh=mesh,
     )
 
     def run_once():
@@ -47,6 +56,6 @@ def cmd_generate(args) -> int:
         "new_tokens": args.max_new_tokens,
         "kv_dtype": args.kv_dtype,
         "out_shape": list(out.shape),
-        "mesh": {"devices": 1, "device": str(device)},
+        "mesh": mesh_report(mesh, device),
     })
     return 0

@@ -1,6 +1,7 @@
 """``workload train`` / ``workload convert``: training throughput on one
-device, with resumable checkpoints (``--checkpoint-dir``) and a token file
-(``--data``), and HF-checkpoint import."""
+device or over a mesh (dense Llama), with resumable checkpoints
+(``--checkpoint-dir``) and a token file (``--data``), and HF-checkpoint
+import."""
 
 from __future__ import annotations
 
@@ -10,8 +11,9 @@ import time
 import torch
 
 from .. import resolve_device
-from .common import (emit, llama_presets, log, maybe_profile, moe_presets,
-                     pick_preset, sync)
+from .common import (LATER_SLICE, batch_rows, build_mesh, emit,
+                     init_distributed, llama_presets, log, maybe_profile,
+                     mesh_report, moe_presets, pick_preset, sync)
 
 
 def _train_step_factory(family: str):
@@ -22,8 +24,49 @@ def _train_step_factory(family: str):
     return make_train_step
 
 
+def _refuse_on_mesh(args) -> None:
+    """The combinations a mesh of more than one process does not run in
+    this slice: each exits with its name, none falls back."""
+    later = [name for name, on in (
+        ("--pipe > 1", args.pipe > 1),
+        ("--expert > 1", args.expert > 1),
+        ("--model moe", args.model == "moe"),
+        ("--optimizer adam8bit", args.optimizer == "adam8bit"),
+        ("--checkpoint-dir", bool(args.checkpoint_dir)),
+    ) if on]
+    if later:
+        raise SystemExit(
+            f"{', '.join(later)} on a mesh of more than one process: not "
+            f"in the port yet ({LATER_SLICE})"
+        )
+
+
+def _sp_attn_fn(args, mesh):
+    """Sequence-parallel attention for --seq > 1."""
+    if mesh is None or args.seq <= 1:
+        return None
+    if args.sp_impl == "ulysses":
+        from ..parallel.ulysses import make_ulysses_attn_fn
+
+        return make_ulysses_attn_fn(mesh)
+    from ..parallel.ring import make_ring_attn_fn
+
+    return make_ring_attn_fn(mesh)
+
+
 def cmd_train(args) -> int:
-    device = resolve_device(args.device)
+    # the reference's refusals: an axis the model would not use
+    if args.model != "moe" and args.expert > 1:
+        raise SystemExit("--expert requires --model moe")
+    if args.pipe > 1 and args.seq > 1 and args.sp_impl == "ulysses":
+        raise SystemExit(
+            "--sp-impl ulysses cannot nest inside the pipeline region; "
+            "use --sp-impl ring with --pipe"
+        )
+    bootstrap, device = init_distributed(args.bootstrap, args.device)
+    mesh = build_mesh(args, bootstrap, device)
+    if mesh is not None and mesh.plan.size() > 1:
+        _refuse_on_mesh(args)
     # an imported checkpoint (workload convert) carries its own geometry,
     # family and rope scaling included, which beats --model / --preset
     sidecar_cfg = None
@@ -38,10 +81,18 @@ def cmd_train(args) -> int:
             "--model/--preset)")
     presets = moe_presets() if args.model == "moe" else llama_presets()
     cfg = sidecar_cfg or pick_preset(presets, args.preset, args.model)
-    make_train_step = _train_step_factory(args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
-    step, init_all, _ = make_train_step(cfg, optimizer=optimizer,
-                                        device=device)
+    if args.model == "moe":
+        from ..models.moe import make_train_step
+
+        step, init_all, _ = make_train_step(cfg, optimizer=optimizer,
+                                            device=device)
+    else:
+        from ..models.llama import make_train_step
+
+        step, init_all, _ = make_train_step(
+            cfg, optimizer=optimizer, device=device, mesh=mesh,
+            attn_fn=_sp_attn_fn(args, mesh))
     params, opt_state = init_all(torch.Generator(device).manual_seed(0))
 
     start_step = 0
@@ -57,22 +108,24 @@ def cmd_train(args) -> int:
             log(f"resumed from checkpoint step {start_step}")
 
     if args.data:
-        from ..data import DataConfig, MemmapTokens, device_batches
+        from ..data import (DataConfig, MemmapTokens, device_batches,
+                            sharded_batches)
 
         # resumable by construction: the iterator starts at the restored
         # step, reproducing exactly the batches an uninterrupted run sees
-        data_it = device_batches(
-            MemmapTokens(args.data, vocab_size=cfg.vocab_size),
-            DataConfig(batch=args.batch, seq_len=args.seq_len),
-            device, start_step=start_step,
-        )
+        source = MemmapTokens(args.data, vocab_size=cfg.vocab_size)
+        dcfg = DataConfig(batch=args.batch, seq_len=args.seq_len)
+        data_it = (device_batches(source, dcfg, device, start_step=start_step)
+                   if mesh is None else
+                   sharded_batches(source, dcfg, mesh, start_step=start_step))
         next_batch = lambda: next(data_it)   # noqa: E731
     else:
-        # a fixed synthetic batch, as the reference trains without --data
-        tokens = torch.randint(
+        # a fixed synthetic batch, as the reference trains without --data:
+        # drawn whole on every rank, each keeping its rows
+        tokens = batch_rows(torch.randint(
             0, cfg.vocab_size, (args.batch, args.seq_len + 1), device=device,
             generator=torch.Generator(device).manual_seed(1),
-        )
+        ), mesh)
         next_batch = lambda: tokens          # noqa: E731
 
     def maybe_save(i: int, last: int):
@@ -107,16 +160,18 @@ def cmd_train(args) -> int:
         log("steps=1: throughput includes the first step's set-up")
         timed_steps, dt = 1, first_dt
 
+    world = 1 if mesh is None else mesh.plan.size()
     emit({
         "metric": f"{args.model}:{args.preset} train throughput",
-        "value": round(args.batch * args.seq_len * timed_steps / dt, 1),
+        "value": round(args.batch * args.seq_len * timed_steps / dt / world,
+                       1),
         "unit": "tokens/sec/chip",
         "steps": args.steps,
         "final_loss": round(loss_val, 4),
         # the first step's loss, unrounded: an imported checkpoint's is
         # the imported weights' loss on the first batch
         "first_loss": first_loss,
-        "mesh": {"devices": 1, "device": str(device)},
+        "mesh": mesh_report(mesh, device),
         "resumed_from": start_step,
     })
     return 0
@@ -131,6 +186,12 @@ def cmd_convert(args) -> int:
     from ..models.checkpoint import TrainCheckpointer
     from ..models.convert import cfg_to_json, family, load_hf_checkpoint
 
+    if args.bootstrap or max(args.tensor, args.seq, args.expert,
+                             args.pipe) > 1:
+        raise SystemExit(
+            f"convert over a mesh (--bootstrap, --tensor, --seq, --expert, "
+            f"--pipe): not in the port yet ({LATER_SLICE})"
+        )
     device = resolve_device(args.device)
     with maybe_profile(args.profile, "convert", device):
         params, cfg = load_hf_checkpoint(args.hf_path, device=device)
