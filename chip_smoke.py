@@ -80,7 +80,24 @@ Phases, each printing JSON lines; any failure exits non-zero:
     backwards asserted, out within the bf16 atol, dq / dk / dv within the
     backward's relative-norm tolerance, the ring's device time beside the
     dense call's;
-17. the kernel table: each kernel's time at its path's shapes beside its
+17. mesh_world1_moe: ``MoEConfig.small`` at full width and depth, batch
+    4 x 2048, AdamW, through a world-1 NCCL mesh (a bootstrap file, as
+    phase 15) beside the single-device MoE step from the same seed, 3
+    steps each: the same losses and leaf bits, the same launches per
+    step, each side's step time and peak memory;
+18. expert_virtual: one layer of ``MoEConfig.small``'s expert FFN at the
+    cell's 4 x 2048 tokens split into 2 and into 4 virtual expert shards
+    in one process (each shard its experts' slice of the leaves and of
+    dispatch/combine, the partials summed, as ranks sum them over
+    ``expert``), forward and backward against the unsplit FFN: out and
+    every gradient within 1% in relative norm and 2% of its largest
+    value (the partials are rounded to bf16 before their sum), each
+    side's time;
+19. init_shards: ``mixtral-8x7b``'s tree drawn for virtual ranks 0 and 1
+    of an ``expert`` axis of 8 (one expert a rank; no process group), slab
+    by slab: the seconds, the parameters and ``max_memory_allocated``
+    (under 30 GB), and the two ranks' replicated leaves the same bits;
+20. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
@@ -306,6 +323,15 @@ CKPT_PARAM_ATOL = 2 * A8_LR
 # rounding is a fault of the mesh path
 MESH_LOSS_REL = 1e-5
 MESH_LEAF_REL = 1e-3
+# the MoE on the mesh: the MoE cell's step through a world-1 mesh
+# (MESH_MOE_STEPS each way), its expert FFN over EXPERT_SHARDS virtual
+# expert shards, and mixtral-8x7b drawn for one rank of INIT_EXPERTS
+MESH_MOE_STEPS = 3
+EXPERT_SHARDS = (2, 4)
+INIT_EXPERTS = 8
+# a rank's mixtral-8x7b tree at expert 8 (about 7.24 B parameters, 14.5
+# GB in bf16) plus one f32 expert slab (7.5 GB) must stay under this
+INIT_PEAK_LIMIT = 30e9
 
 
 def emit(payload: dict) -> None:
@@ -2313,6 +2339,211 @@ def phase_ring_virtual() -> dict:
     return runs
 
 
+MOE_RUN_KEYS = ("first_step_s", "step_s", "median_step_s", "tokens_per_s",
+                "max_memory_allocated_gib")
+
+
+def phase_mesh_world1_moe() -> dict:
+    """The MoE cell's step through a world-1 NCCL mesh from a bootstrap
+    file beside the single-device MoE step from the same seed: the same
+    losses, leaf bits and launches per step."""
+    import torch.distributed as dist
+
+    from tpu_network_operator_torch.models import moe
+    from tpu_network_operator_torch.workload.common import (batch_rows,
+                                                            build_mesh,
+                                                            init_distributed)
+
+    t_phase = time.perf_counter()
+    directory = SCRATCH / "mesh_world1_moe"
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / "jax-coordinator.json"
+    _write_bootstrap(path)
+    boot, dev = init_distributed(str(path), "cuda")
+    cfg = moe.MoEConfig.small()
+    runs = {}
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"the mesh's backend is {backend}, not nccl")
+        mesh = build_mesh(argparse.Namespace(tensor=1, seq=1, expert=1,
+                                             pipe=1), boot, dev)
+        for side, m in (("single", None), ("mesh", mesh)):
+            step, init_all, _ = moe.make_train_step(cfg, device="cuda",
+                                                    mesh=m)
+            gen = torch.Generator("cuda").manual_seed(SEED + 14)
+            torch.cuda.reset_peak_memory_stats()
+            params, opt_state = init_all(gen)
+            tokens = torch.randint(0, cfg.vocab_size,
+                                   (MOE_BATCH, MOE_SEQ + 1), device="cuda",
+                                   generator=gen)
+            params, opt_state, losses, step_s, per_step, first_s = \
+                run_steps(step, params, opt_state, batch_rows(tokens, m),
+                          MESH_MOE_STEPS - 1)
+            peak = torch.cuda.max_memory_allocated()
+            del opt_state, step
+            # the single side's leaves wait on the host for the comparison
+            kept = params if m is not None else params_to(params, "cpu")
+            del params
+            torch.cuda.empty_cache()
+            med = statistics.median(step_s)
+            runs[side] = {"params": kept, "losses": losses,
+                          "per_step": per_step, "first_step_s": first_s,
+                          "step_s": step_s, "median_step_s": med,
+                          "tokens_per_s": MOE_BATCH * MOE_SEQ / med,
+                          "max_memory_allocated_gib": peak / 2**30}
+    finally:
+        dist.destroy_process_group()
+    single, meshed = runs["single"], runs["mesh"]
+    same_leaves = {n: torch.equal(bits(a), bits(b.to("cuda"))) for n, a, b in
+                   zip(_leaf_names(meshed["params"]),
+                       training.tree_leaves(meshed["params"]),
+                       training.tree_leaves(single["params"]))}
+    del single["params"], meshed["params"]
+    torch.cuda.empty_cache()
+    want = {**remat_launches(cfg.layers), "adam8_fused": 0}
+    emit({"phase": "mesh_world1_moe", "backend": backend, "mesh": mesh.shape,
+          "preset": "moe:small", "layers": cfg.layers,
+          "params": cfg.num_params(), "batch": MOE_BATCH, "seq": MOE_SEQ,
+          "remat_policy": cfg.remat_policy, "optimizer": "adamw(3e-4, 0.1)",
+          "losses": meshed["losses"],
+          "single_device_losses": single["losses"],
+          "same_losses": meshed["losses"] == single["losses"],
+          "same_bits_leaves": sum(same_leaves.values()),
+          "leaves": len(same_leaves),
+          **{k: meshed[k] for k in MOE_RUN_KEYS},
+          **{f"single_device_{k}": single[k] for k in MOE_RUN_KEYS},
+          "launches_per_step": meshed["per_step"][-1],
+          "single_device_launches_per_step": single["per_step"][-1],
+          "seconds": time.perf_counter() - t_phase})
+    check(meshed["losses"] == single["losses"],
+          f"world-1 mesh MoE losses {meshed['losses']} are not the single "
+          f"device's {single['losses']}")
+    check(all(same_leaves.values()),
+          "world-1 mesh MoE leaves differ from the single device's: "
+          f"{[n for n, ok in same_leaves.items() if not ok]}")
+    check(all(p == want for p in meshed["per_step"] + single["per_step"]),
+          f"MoE launches per step: mesh {meshed['per_step']}, single "
+          f"{single['per_step']}, expected {want}")
+    check(meshed["losses"][-1] < meshed["losses"][0],
+          f"the mesh MoE loss did not fall: {meshed['losses']}")
+    shutil.rmtree(directory, ignore_errors=True)
+    return meshed["per_step"][-1]
+
+
+def phase_expert_virtual() -> dict:
+    """One layer's expert FFN at the MoE cell's widths and tokens over
+    virtual expert shards in one process, against the unsplit FFN."""
+    from tpu_network_operator_torch.models import moe
+
+    cfg = dataclasses.replace(moe.MoEConfig.small(), layers=1)
+    gen = torch.Generator("cuda").manual_seed(SEED + 15)
+    params = moe.init_params(cfg, gen, "cuda")
+    lp = {k: params["layers"][k][0].detach().clone()
+          for k in ("router", "w_gate", "w_up", "w_down")}
+    del params
+    leaves = [t.requires_grad_() for t in lp.values()]
+    y = torch.randn(MOE_BATCH, MOE_SEQ, cfg.hidden, device="cuda",
+                    generator=gen).bfloat16().requires_grad_()
+    dy = torch.randn(y.shape, device="cuda", generator=gen).bfloat16()
+
+    def fwd_bwd(shards):
+        if shards == 1:
+            out, aux = moe._moe_ffn(cfg, lp, y)
+        else:
+            out, aux = moe.ffn_over_expert_shards(cfg, lp, y, shards)
+        grads = torch.autograd.grad((out.float() * dy.float()).sum() + aux,
+                                    [y, *leaves])
+        return out, aux, grads
+
+    ref, aux_ref, grads_ref = fwd_bwd(1)
+    unsplit_ms = time_ms_eager(lambda: fwd_bwd(1), iters=3, reps=3)
+    counts = {}
+    for n in EXPERT_SHARDS:
+        _kernels.reset_launches()
+        out, aux, grads = fwd_bwd(n)
+        torch.cuda.synchronize()
+        counts[n] = dict(_kernels.LAUNCHES)
+        # the shards' partial outputs are rounded to bf16 before their
+        # sum, so out is held as the gradients are
+        o_ok = grad_ok(out, ref)
+        g_ok = {name: grad_ok(g, r) for name, g, r in
+                zip(("y", *lp), grads, grads_ref)}
+        ok = (o_ok["ok"] and torch.equal(aux, aux_ref)
+              and all(g["ok"] for g in g_ok.values()))
+        emit({"phase": "expert_virtual", "preset": "moe:small",
+              "tokens": [MOE_BATCH, MOE_SEQ], "experts": cfg.experts,
+              "shards": n, "experts_per_shard": cfg.experts // n,
+              "capacity": cfg.capacity(MOE_SEQ),
+              "out": o_ok, "aux_equal": bool(aux == aux_ref),
+              "grads": g_ok, "ok": ok,
+              "tol": {"rel_norm": GRAD_REL,
+                      "grad_max_frac": GRAD_MAX_FRAC},
+              "sharded_fwd_bwd_ms": time_ms_eager(lambda: fwd_bwd(n),
+                                                  iters=3, reps=3),
+              "unsplit_fwd_bwd_ms": unsplit_ms, "launches": counts[n]})
+        check(ok, f"the expert FFN over {n} virtual shards disagrees with "
+                  f"the unsplit FFN: out {o_ok}, {g_ok}")
+    del lp, leaves, y, dy, ref, grads_ref
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_init_shards() -> dict:
+    """mixtral-8x7b drawn for two virtual ranks of an expert axis of
+    INIT_EXPERTS (no process group), slab by slab: the seconds and the
+    peak memory, and the replicated leaves the same bits on both."""
+    from tpu_network_operator_torch.models import moe
+    from tpu_network_operator_torch.parallel import MeshCoord, plan_axes
+
+    cfg = moe.MoEConfig.mixtral_8x7b()
+    plan = plan_axes(INIT_EXPERTS, expert=INIT_EXPERTS)
+    specs = moe.param_specs(cfg)
+    replicated = {n: "expert" not in spec for n, spec in zip(
+        _leaf_names(specs), training.tree_leaves(specs))}
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    ranks, first, same = {}, None, None
+    _kernels.reset_launches()
+    for r in (0, 1):
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = moe.init_params(cfg, torch.Generator("cuda").manual_seed(
+            SEED + 16), "cuda", MeshCoord(plan, {"expert": r}))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        leaves = dict(zip(_leaf_names(params),
+                          training.tree_leaves(params)))
+        ranks[r] = {"seconds": seconds, "peak_bytes": peak,
+                    "params": sum(t.numel() for t in leaves.values()),
+                    "bytes": sum(t.numel() * t.element_size()
+                                 for t in leaves.values()),
+                    "w_gate": list(leaves["layers/w_gate"].shape)}
+        if first is None:
+            # rank 0's replicated leaves wait on the host
+            first = {n: t.cpu() for n, t in leaves.items() if replicated[n]}
+        else:
+            same = all(torch.equal(bits(leaves[n]), bits(t.to("cuda")))
+                       for n, t in first.items())
+        del params, leaves
+        torch.cuda.empty_cache()
+    launches = dict(_kernels.LAUNCHES)
+    emit({"phase": "init_shards", "preset": "moe:mixtral-8x7b",
+          "mesh": plan.axis_sizes, "total_params": cfg.num_params(),
+          "ranks": ranks, "same_replicated_bits": same,
+          "peak_limit_bytes": INIT_PEAK_LIMIT, "launches": launches})
+    check(same,
+          "two virtual expert ranks drew different replicated leaves")
+    for r in (0, 1):
+        check(ranks[r]["peak_bytes"] < INIT_PEAK_LIMIT,
+              f"rank {r}'s shard-wise init peaked at "
+              f"{ranks[r]['peak_bytes']} bytes")
+        check(ranks[r]["w_gate"] == [cfg.layers, 1, cfg.hidden, cfg.ffn],
+              f"rank {r}'s w_gate is {ranks[r]['w_gate']}")
+    return launches
+
+
 def _leaf_names(tree, prefix=""):
     """Key paths in training.tree_leaves order."""
     for k, v in tree.items():
@@ -2694,6 +2925,10 @@ def main(argv=None) -> int:
     ring_runs = phase_ring_virtual()
     for geom, counts in ring_runs.items():
         more_launches[f"ring_virtual_{geom}_fwd_bwd"] = counts
+    more_launches["mesh_world1_moe_train_step"] = phase_mesh_world1_moe()
+    for n, counts in phase_expert_virtual().items():
+        more_launches[f"expert_virtual_{n}_shards"] = counts
+    more_launches["init_shards_mixtral_2_ranks"] = phase_init_shards()
     phase_table(name, launches, train_launches, adam8, moe_runs,
                 more_launches, ring_runs)
     print(smi, flush=True)

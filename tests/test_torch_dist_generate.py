@@ -1,12 +1,15 @@
 """Serving over a mesh and the workload CLI on launched ranks.
 
 The port's ``generate(..., mesh=...)`` on 4 gloo ranks (data x tensor and
-fsdp x tensor, the native and the int8 KV cache) gives the reference's
+fsdp x tensor, the native and the int8 KV cache, and meshes with an expert
+or a pipe axis, which replicate as the reference's dense specs name
+neither) gives the reference's
 greedy tokens: ``make_generate_fn(cfg, n, mesh=...)`` on 4 CPU devices,
 from the same f32 parameters (token ids compared exactly; the tiny model's
 top-1 margins are far above f32 summation noise).  ``workload train`` on
 2 processes started as a launcher starts them prints its JSON line with
-the mesh, and the combinations this slice does not shard exit by name.
+the mesh, the dense model over tensor and the MoE over expert, and the
+combinations the port does not shard yet exit by name.
 """
 
 import dataclasses
@@ -30,6 +33,8 @@ MESHES = {
     "data2_tensor2": (dict(data=2, tensor=2, fsdp=1), "native"),
     "fsdp2_tensor2": (dict(fsdp=2, tensor=2), "native"),
     "data2_tensor2_int8": (dict(data=2, tensor=2, fsdp=1), "int8"),
+    "expert2_fsdp2": (dict(expert=2, fsdp=2), "native"),
+    "pipe2_tensor2": (dict(pipe=2, tensor=2, fsdp=1), "native"),
 }
 PROMPT, NEW = 8, 8
 
@@ -108,9 +113,11 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def test_workload_train_on_two_launched_ranks_prints_its_mesh():
+def _launch_two_ranks(flags):
+    """``workload train`` with ``flags`` on 2 processes started as a
+    launcher starts them: each rank's JSON line."""
     argv = [sys.executable, "-m", "tpu_network_operator_torch.workload",
-            "train", "--device", "cpu", "--preset", "tiny", "--tensor", "2",
+            "train", "--device", "cpu", "--preset", "tiny", *flags,
             "--steps", "2", "--batch", "4", "--seq-len", "32"]
     port = str(_free_port())
     procs = []
@@ -132,6 +139,11 @@ def test_workload_train_on_two_launched_ranks_prints_its_mesh():
             if p.poll() is None:
                 p.kill()
                 p.communicate()
+    return lines
+
+
+def test_workload_train_on_two_launched_ranks_prints_its_mesh():
+    lines = _launch_two_ranks(["--tensor", "2"])
     want = {"data": 1, "fsdp": 1, "pipe": 1, "expert": 1, "seq": 1,
             "tensor": 2, "devices": 2, "device": "cpu"}
     for line in lines:
@@ -142,12 +154,35 @@ def test_workload_train_on_two_launched_ranks_prints_its_mesh():
     assert lines[0]["first_loss"] == lines[1]["first_loss"]
 
 
+def test_workload_train_moe_over_expert_on_two_launched_ranks():
+    """The MoE with its experts over 2 launched ranks: both print the
+    mesh and the same losses (the ranks hold the same rows, and the
+    partial expert outputs are summed over expert)."""
+    lines = _launch_two_ranks(["--model", "moe", "--expert", "2"])
+    want = {"data": 1, "fsdp": 1, "pipe": 1, "expert": 2, "seq": 1,
+            "tensor": 1, "devices": 2, "device": "cpu"}
+    for line in lines:
+        assert line["mesh"] == want
+        assert line["metric"] == "moe:tiny train throughput"
+        assert np.isfinite(line["final_loss"]) and line["value"] > 0
+    assert lines[0]["final_loss"] == lines[1]["final_loss"]
+    assert lines[0]["first_loss"] == lines[1]["first_loss"]
+
+
+# The ids are stable names. Cases 1 and 2 keep theirs: a mesh now runs
+# --expert and --model moe, so they hold the MoE's combinations that
+# still exit by name.
 @pytest.mark.parametrize("flags,named", [
-    (dict(pipe=2), "--pipe > 1"),
-    (dict(expert=2, model="moe"), "--expert > 1, --model moe"),
-    (dict(model="moe"), "--model moe"),
-    (dict(optimizer="adam8bit"), "--optimizer adam8bit"),
-    (dict(checkpoint_dir="ckpt"), "--checkpoint-dir"),
+    pytest.param(dict(pipe=2), "--pipe > 1", id="flags0---pipe > 1"),
+    pytest.param(dict(expert=2, model="moe", optimizer="adam8bit"),
+                 "--optimizer adam8bit",
+                 id="flags1---expert > 1, --model moe"),
+    pytest.param(dict(model="moe", checkpoint_dir="ckpt"),
+                 "--checkpoint-dir", id="flags2---model moe"),
+    pytest.param(dict(optimizer="adam8bit"), "--optimizer adam8bit",
+                 id="flags3---optimizer adam8bit"),
+    pytest.param(dict(checkpoint_dir="ckpt"), "--checkpoint-dir",
+                 id="flags4---checkpoint-dir"),
 ])
 def test_train_refuses_what_this_slice_does_not_shard(flags, named):
     from tpu_network_operator_torch.workload import train

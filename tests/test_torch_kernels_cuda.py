@@ -882,6 +882,50 @@ def test_moe_train_step_on_card_matches_cpu(cuda):
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-2 * losses["cpu"]
 
 
+@pytest.mark.parametrize("case", ["starved_shard", "capacity_1"])
+@pytest.mark.parametrize("shards", [2, 4])
+def test_expert_sharded_ffn_on_card_is_the_unsplit_ffn(cuda, case, shards):
+    # the MoE FFN split over virtual expert shards in one process (each
+    # shard its experts' slice of the leaves and of dispatch/combine, the
+    # partials summed) against the unsplit FFN, in bf16 at moe-small's
+    # expert shape cut to 512 tokens: "starved_shard" zeroes the router, so
+    # every token ties to experts 0 and 1, which overflow, and the shards
+    # past the first receive no token (their output and expert gradients
+    # exactly zero); "capacity_1" keeps one token per expert a row and
+    # drops the rest.  Out and gradients within 1% in relative norm (the
+    # partials are rounded to bf16 before their sum, and one bf16 rounding
+    # may flip between summation orders)
+    base = tmoe.MoEConfig.small()
+    cfg = dataclasses.replace(
+        base, layers=1, capacity_factor=1e-3 if case == "capacity_1"
+        else base.capacity_factor)
+    params = tmoe.init_params(cfg, cuda, "cuda")
+    lp = {k: params["layers"][k][0].detach().clone()
+          for k in ("router", "w_gate", "w_up", "w_down")}
+    if case == "starved_shard":
+        lp["router"].zero_()
+    leaves = [t.requires_grad_() for t in lp.values()]
+    y = torch.randn(2, 256, cfg.hidden, device="cuda",
+                    generator=cuda).bfloat16().requires_grad_()
+    dy = torch.randn(2, 256, cfg.hidden, device="cuda",
+                     generator=cuda).bfloat16()
+    if case == "capacity_1":
+        assert cfg.capacity(256) == 1
+    ref, aux_ref = tmoe._moe_ffn(cfg, lp, y)
+    grads_ref = torch.autograd.grad((ref * dy).sum() + aux_ref, [y, *leaves])
+    out, aux = tmoe.ffn_over_expert_shards(cfg, lp, y, shards)
+    grads = torch.autograd.grad((out * dy).sum() + aux, [y, *leaves])
+    assert _rel(out, ref) <= 1e-2
+    assert torch.equal(aux, aux_ref)
+    for name, g, r in zip(("y", *lp), grads, grads_ref):
+        assert _rel(g, r) <= 1e-2, name
+    if case == "starved_shard":
+        per = cfg.experts // shards
+        for name in ("w_gate", "w_up", "w_down"):
+            g = grads[1 + list(lp).index(name)]
+            assert not g[per:].any(), name      # no token reached them
+
+
 # -- the mesh: the ring's per-chunk schedule and the collectives -------------
 
 

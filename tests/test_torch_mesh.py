@@ -221,3 +221,51 @@ def test_bootstrap_starts_a_gloo_group_and_an_all_ones_mesh(tmp_path):
     assert (backend, world, device, held) == ("gloo", 1, "cpu", True)
     assert shape == dict.fromkeys(tmesh.AXES, 1)
     assert not Path(path + ".lock").exists()      # released at exit
+
+
+def test_heads_that_do_not_divide_tensor_are_refused_where_the_reference_runs():
+    """The divergence kept on purpose: ``LlamaConfig.tiny`` with 6 heads
+    (head_dim 10, q width 60) over 4 tensor shards.  The reference's dense
+    step runs on that mesh, because GSPMD reshards around the projections
+    (15 q columns a shard, which cuts heads in two); the port's
+    column-parallel projections need whole heads on each rank, so its
+    ``Layout`` refuses the mesh with a named ValueError instead of
+    resharding.  No preset meets the case at tensor 2, 4 or 8."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+
+    from tpu_network_operator.models import llama as jllama
+    from tpu_network_operator_torch.models import llama as tllama
+
+    jcfg = dataclasses.replace(jllama.LlamaConfig.tiny(), heads=6,
+                               dtype=jnp.float32)
+    mesh = jmesh.make_mesh(jmesh.plan_axes(4, tensor=4),
+                           devices=jax.devices()[:4])
+    step, init_all, _ = jllama.make_train_step(jcfg, mesh)
+    params, opt_state = init_all(jax.random.key(0))
+    tokens = jnp.zeros((4, 17), jnp.int32)
+    _, _, loss = step(params, opt_state, tokens)
+    assert np.isfinite(float(loss))
+
+    cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), heads=6)
+    coord = tmesh.MeshCoord(tmesh.plan_axes(4, tensor=4), {"tensor": 1})
+    with pytest.raises(ValueError, match=r"tensor parallelism over 4 ranks "
+                                         r"needs heads \(6\) and ffn \(128\) "
+                                         "divisible by 4"):
+        tllama.Layout(cfg, coord)
+
+
+def test_training_over_pipe_is_refused_by_name():
+    """The dense layout names no pipe axis, as the reference's specs name
+    none: serving replicates over it (``test_torch_dist_generate.py``),
+    and training over it, the pipeline schedules, is a later slice that
+    the layout refuses by name rather than running replicas."""
+    from tpu_network_operator_torch.models import llama as tllama
+
+    pipe = tmesh.MeshCoord(tmesh.plan_axes(2, pipe=2), {"pipe": 1})
+    with pytest.raises(ValueError, match=r"training over a 'pipe' axis is "
+                                         r"not in this port yet"):
+        tllama.Layout(tllama.LlamaConfig.tiny(), pipe)

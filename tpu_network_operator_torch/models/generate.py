@@ -5,7 +5,8 @@ device or over a mesh of data x fsdp x tensor ranks (``mesh=``): each rank
 then serves its rows of the batch with its shards of the parameters
 (:class:`.llama.Layout`, the train step's sharded layer without the
 backward), and its KV cache holds its rows and its kv-heads, as the
-reference's ``cache_specs`` lays the cache out.  A seq axis replicates.
+reference's ``cache_specs`` lays the cache out.  The seq, expert and pipe
+axes replicate, as under the reference's generate.
 
 * The KV cache is one buffer pair ``[L, B, max_len, Hkv, D]`` allocated
   once per :func:`generate` call.  Each step writes its fresh K/V rows
@@ -262,7 +263,8 @@ def generate(
             f"max_len {max_len} < prompt {s} + new {max_new_tokens}"
         )
     # serving runs no ring: a seq axis replicates
-    lay = Layout(dataclasses.replace(cfg, seq_parallel=False), mesh)
+    lay = Layout(dataclasses.replace(cfg, seq_parallel=False), mesh,
+                 serving=True)
     cache = init_cache(cfg, b, max_len, kv_dtype, device=device,
                        kv_heads=lay.kv_heads)
     rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,

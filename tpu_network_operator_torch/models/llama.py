@@ -198,10 +198,13 @@ def params_from_jax(tree: Mapping[str, Any], device=None) -> Params:
 
 
 def params_to(params: Params, device) -> Params:
-    """A copy of ``params`` on ``device`` (same tree, same dtypes)."""
+    """A copy of ``params`` on ``device`` (same tree, same dtypes), cut
+    from autograd: a copy of a leaf that requires grad would otherwise
+    keep that leaf alive through its graph."""
     dev = torch.device(device)
     return {
-        k: params_to(v, dev) if isinstance(v, Mapping) else v.to(dev)
+        k: params_to(v, dev) if isinstance(v, Mapping)
+        else v.detach().to(dev)
         for k, v in params.items()
     }
 
@@ -236,29 +239,34 @@ def _zip_specs(params: Params, specs: Params, fn) -> Params:
             else fn(v, specs[k]) for k, v in params.items()}
 
 
-def shard_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
-    """This rank's shard of every leaf of a whole tree (each a contiguous
-    copy, so the whole tree can be freed): dim i cut into
-    ``mesh.size(axis)`` chunks where :func:`param_specs` names an axis,
-    this rank's chunk kept.  Raises where a dim does not divide."""
-    def shard(leaf, spec):
-        for dim, axis in enumerate(spec):
-            if axis is None or mesh.size(axis) == 1:
-                continue
-            n = mesh.size(axis)
-            if leaf.shape[dim] % n:
-                raise ValueError(
-                    f"dim {dim} of a {tuple(leaf.shape)} leaf does not "
-                    f"shard over the {n} ranks of axis {axis!r}"
-                )
-            leaf = leaf.chunk(n, dim=dim)[mesh.coord[axis]]
-        return leaf.contiguous()
-
-    return _zip_specs(params, param_specs(cfg), shard)
+def shard_leaf(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's shard of one whole leaf (a contiguous copy where it is
+    cut): dim i cut into ``mesh.size(axis)`` chunks where ``spec`` names
+    an axis, this rank's chunk kept.  ``mesh`` needs only ``size`` and
+    ``coord`` (a :class:`..parallel.mesh.MeshCoord` will do).  Raises
+    where a dim does not divide."""
+    for dim, axis in enumerate(spec):
+        if axis is None or mesh.size(axis) == 1:
+            continue
+        n = mesh.size(axis)
+        if leaf.shape[dim] % n:
+            raise ValueError(
+                f"dim {dim} of a {tuple(leaf.shape)} leaf does not "
+                f"shard over the {n} ranks of axis {axis!r}"
+            )
+        leaf = leaf.chunk(n, dim=dim)[mesh.coord[axis]]
+    return leaf.contiguous()
 
 
-def gather_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
-    """The whole tree from every rank's shards (:func:`shard_params`'s
+def shard_tree(params: Params, specs: Params, mesh) -> Params:
+    """:func:`shard_leaf` over a tree, each leaf paired with its spec by
+    name."""
+    return _zip_specs(params, specs,
+                      lambda leaf, spec: shard_leaf(leaf, spec, mesh))
+
+
+def gather_tree(params: Params, specs: Params, mesh) -> Params:
+    """The whole tree from every rank's shards (:func:`shard_tree`'s
     inverse), on every rank; for tests and checks."""
     def gather(leaf, spec):
         leaf = leaf.detach()
@@ -267,7 +275,20 @@ def gather_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
                 leaf = comm.all_gather(leaf, mesh.group(axis), dim)
         return leaf
 
-    return _zip_specs(params, param_specs(cfg), gather)
+    return _zip_specs(params, specs, gather)
+
+
+def shard_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """This rank's shard of every leaf of a whole tree by
+    :func:`param_specs` (each a contiguous copy, so the whole tree can be
+    freed)."""
+    return shard_tree(params, param_specs(cfg), mesh)
+
+
+def gather_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
+    """The whole tree from every rank's shards (:func:`shard_params`'s
+    inverse), on every rank; for tests and checks."""
+    return gather_tree(params, param_specs(cfg), mesh)
 
 
 class Layout:
@@ -290,9 +311,12 @@ class Layout:
     (``cfg.seq_parallel`` False), or keeps its chunk of the sequence
     through the layer (True); without ``attn_fn`` attention runs on the
     whole local sequence, as the reference's mesh attention does outside
-    the ring.  Pipeline and expert axes are later slices."""
+    the ring.  The dense model names no ``expert`` axis, so its ranks
+    replicate; ``pipe`` replicates when ``serving`` (the reference's
+    generate shards by the same specs), and training over it is a later
+    slice.  The MoE's layout (``models/moe.py``) adds the experts."""
 
-    def __init__(self, cfg: LlamaConfig, mesh=None, attn_fn=None):
+    def __init__(self, cfg, mesh=None, attn_fn=None, serving: bool = False):
         self.cfg, self.mesh = cfg, mesh
         self.attn = attn_fn or functools.partial(attention, cfg)
         if mesh is None:
@@ -301,12 +325,11 @@ class Layout:
             self.seq_shards, self.seq_index, self.seq_split = 1, 0, False
             self.batch_axes, self.loss_scale = (), 1.0
             return
-        for axis in ("pipe", "expert"):
-            if mesh.size(axis) > 1:
-                raise ValueError(
-                    f"the dense Llama step has no {axis!r} axis in this port "
-                    f"yet (ROADMAP.md, queue 1 item 3); got {mesh.shape}"
-                )
+        if mesh.size("pipe") > 1 and not serving:
+            raise ValueError(
+                f"training over a 'pipe' axis is not in this port yet "
+                f"(ROADMAP.md, queue 1 item 3e); got {mesh.shape}"
+            )
         t, n = mesh.size("tensor"), mesh.size("seq")
         if cfg.heads % t or cfg.ffn % t:
             raise ValueError(
@@ -322,7 +345,7 @@ class Layout:
         self.kv_rep = 1 if cfg.kv_heads % t == 0 else _gqa_repeat_factor(
             cfg.heads, cfg.kv_heads, t)
         self.kv_heads = cfg.kv_heads * self.kv_rep // t
-        sp = cfg.seq_parallel and n > 1
+        sp = getattr(cfg, "seq_parallel", False) and n > 1
         if sp and attn_fn is None:
             self.attn = make_ring_attn_fn(mesh)
         self.seq_split = n > 1 and attn_fn is not None and not sp
@@ -332,6 +355,11 @@ class Layout:
         self.loss_scale = 1.0 / (mesh.size("data", "fsdp") * self.seq_shards)
 
     # -- parameters
+
+    def specs(self) -> Params:
+        """The model's :func:`param_specs`: what each leaf is sharded
+        over."""
+        return param_specs(self.cfg)
 
     def w(self, leaf: torch.Tensor, fsdp_dim: int) -> torch.Tensor:
         """A layer leaf with its fsdp dim gathered."""
@@ -375,7 +403,7 @@ class Layout:
         if self.mesh is None:
             return grads
         specs = list(training.tree_leaves(
-            _zip_specs(params, param_specs(self.cfg), lambda _, s: s)))
+            _zip_specs(params, self.specs(), lambda _, s: s)))
         buckets: Dict[tuple, List[int]] = {}
         for i, spec in enumerate(specs):
             axes = tuple(a for a in self.batch_axes if a not in spec)
@@ -517,6 +545,17 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     return loss if lay.loss_scale == 1.0 else loss * lay.loss_scale
 
 
+def check_mesh_step(device: torch.device, mesh, optimizer) -> None:
+    """The refusals of a train step on a mesh, dense or MoE."""
+    if device.type != mesh.device.type:
+        raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+    if optimizer == "adam8bit" and mesh.plan.size() > 1:
+        raise ValueError(
+            "adamw8bit on a mesh of more than one rank is a later slice "
+            "(ROADMAP.md, queue 1 item 3)"
+        )
+
+
 def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
                     mesh=None, attn_fn=None):
     """(step, init_all, optimizer): ``step(params, opt_state, tokens) ->
@@ -543,13 +582,7 @@ def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
             lambda generator: init_params(cfg, generator, dev),
             optimizer,
         )
-    if dev.type != mesh.device.type:
-        raise ValueError(f"device {dev} is not the mesh's {mesh.device}")
-    if optimizer == "adam8bit" and mesh.plan.size() > 1:
-        raise ValueError(
-            "adamw8bit on a mesh of more than one rank is a later slice "
-            "(ROADMAP.md, queue 1 item 3)"
-        )
+    check_mesh_step(dev, mesh, optimizer)
     lay = Layout(cfg, mesh, attn_fn)
     return training.make_train_step(
         lambda params, tokens: loss_fn(params, tokens, cfg, lay),

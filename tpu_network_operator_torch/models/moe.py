@@ -10,7 +10,16 @@ reference's: stacked ``[L, ...]`` layer leaves, expert leaves ``[L, E,
 ...]`` and ``x @ W`` with ``W[in, out]``, so :func:`params_from_jax`
 carries a JAX MoE tree across by name, the f32 router included.  The
 attention, the norms and RoPE are the dense model's (kernels on CUDA,
-their plain versions on the CPU).  Expert parallelism waits for the mesh.
+their plain versions on the CPU).
+
+On a mesh (:class:`Layout`) the attention half is the dense model's
+sharded layer, and the experts are sharded over ``expert`` with fsdp and
+tensor within each expert, as the reference's :func:`param_specs` say.
+Every expert rank of one data x fsdp coordinate holds the same rows, as
+the reference's dispatch constraint ``P("expert", ("data", "fsdp"))``
+leaves them: each routes its rows in full, runs only its own experts on
+its slice of ``dispatch`` / ``combine``, and the partial outputs are
+summed over expert x tensor.
 """
 
 from __future__ import annotations
@@ -18,19 +27,20 @@ from __future__ import annotations
 import functools
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from .. import resolve_device
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rope, rope_angles
-from . import training
+from ..ops.rope import rope_angles
+from ..parallel import comm
+from . import llama, training
 from .llama import (  # noqa: F401  (params_from_jax: the weight bridge)
     Params,
-    attention,
     init_weight,
     params_from_jax,
+    shard_leaf,
     unbind_layers,
 )
 
@@ -114,40 +124,145 @@ class MoEConfig:
 # -- parameters ---------------------------------------------------------------
 
 
+def param_specs(cfg: MoEConfig) -> Params:
+    """Per leaf, the mesh axis each dim is sharded over (None: whole), the
+    reference's ``param_specs``: the experts dim on ``expert``, fsdp and
+    tensor within each expert as the dense FFN has them, the router
+    replicated, attention, embed and lm_head as the dense specs."""
+    specs = llama.param_specs(cfg)
+    layers = specs["layers"]
+    return {**specs, "layers": {
+        **layers,
+        "router": (None, None, None),
+        "w_gate": (None, "expert", "fsdp", "tensor"),
+        "w_up": (None, "expert", "fsdp", "tensor"),
+        "w_down": (None, "expert", "tensor", "fsdp"),
+    }}
+
+
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def expert_range(cfg: MoEConfig, mesh) -> Tuple[int, int]:
+    """The experts [first, last) of this rank's ``expert`` coordinate (all
+    of them without a mesh).  Raises a named ValueError where the experts
+    do not divide over the axis."""
+    if mesh is None:
+        return 0, cfg.experts
+    n = mesh.size("expert")
+    if cfg.experts % n:
+        raise ValueError(
+            f"expert parallelism over {n} ranks needs the experts "
+            f"({cfg.experts}) divisible by {n}"
+        )
+    per = cfg.experts // n
+    return mesh.coord["expert"] * per, (mesh.coord["expert"] + 1) * per
+
+
 def init_params(cfg: MoEConfig, generator: torch.Generator,
-                device=None) -> Params:
+                device=None, mesh=None) -> Params:
     """Stacked-layer parameters, expert weights ``[L, E, ...]``, drawn as
     :func:`.llama.init_params` draws them from ``generator`` (which must
     live on ``device``); the router in f32, the rest in ``cfg.dtype``.
-    ``device`` None means CUDA, and raises without it."""
-    dev = resolve_device(device)
-    h, hd, f, n, e = cfg.hidden, cfg.head_dim, cfg.ffn, cfg.layers, \
-        cfg.experts
+    ``device`` None means CUDA, and raises without it.
 
-    def init(shape, fan_in, dtype=cfg.dtype):
-        return init_weight(shape, fan_in, dtype, generator, dev)
+    An expert leaf is drawn one expert's ``[L, in, out]`` slab at a time,
+    in expert order, each cast into its place.  With ``mesh`` (anything
+    with ``size`` and ``coord``: a :class:`..parallel.mesh.Mesh`, or a
+    :class:`..parallel.mesh.MeshCoord` standing for a rank) the result is
+    this rank's shards of :func:`param_specs`: every leaf and every slab
+    is drawn in the same order, and only this rank's slice of each is
+    kept, so a seed gives the same tree at every world size, and the
+    transient peak is one f32 slab or one whole non-expert leaf."""
+    dev = resolve_device(device)
+    h, hd, f, n = cfg.hidden, cfg.head_dim, cfg.ffn, cfg.layers
+    specs = param_specs(cfg)
+    first, last = expert_range(cfg, mesh)
+
+    def keep(leaf, spec):
+        return leaf if mesh is None else shard_leaf(leaf, spec, mesh)
+
+    def init(spec, shape, fan_in, dtype=cfg.dtype):
+        return keep(init_weight(shape, fan_in, dtype, generator, dev), spec)
+
+    def experts(name, fan_in):
+        a, b = (f, h) if name == "w_down" else (h, f)
+        spec = (None,) + specs["layers"][name][2:]
+        out = None
+        for e in range(cfg.experts):
+            w = init_weight((n, a, b), fan_in, torch.float32, generator, dev)
+            if first <= e < last:
+                w = keep(w, spec)
+                if out is None:
+                    out = torch.empty((w.shape[0], last - first,
+                                       *w.shape[1:]),
+                                      dtype=cfg.dtype, device=dev)
+                out[:, e - first].copy_(w)  # the cast of .to(cfg.dtype)
+            # freed before the next slab is allocated: one f32 slab at a time
+            del w
+        return out
 
     def ones(shape):
         return torch.ones(shape, dtype=cfg.dtype, device=dev)
 
+    layer = specs["layers"]
     return {
-        "embed": init((cfg.vocab_size, h), h),
+        "embed": init(specs["embed"], (cfg.vocab_size, h), h),
         "layers": {
-            "wq": init((n, h, cfg.heads * hd), h),
-            "wk": init((n, h, cfg.kv_heads * hd), h),
-            "wv": init((n, h, cfg.kv_heads * hd), h),
-            "wo": init((n, cfg.heads * hd, h), cfg.heads * hd),
+            "wq": init(layer["wq"], (n, h, cfg.heads * hd), h),
+            "wk": init(layer["wk"], (n, h, cfg.kv_heads * hd), h),
+            "wv": init(layer["wv"], (n, h, cfg.kv_heads * hd), h),
+            "wo": init(layer["wo"], (n, cfg.heads * hd, h), cfg.heads * hd),
             # router in f32: tiny, precision-sensitive
-            "router": init((n, h, e), h, torch.float32),
-            "w_gate": init((n, e, h, f), h),
-            "w_up": init((n, e, h, f), h),
-            "w_down": init((n, e, f, h), f),
+            "router": init(layer["router"], (n, h, cfg.experts), h,
+                           torch.float32),
+            "w_gate": experts("w_gate", h),
+            "w_up": experts("w_up", h),
+            "w_down": experts("w_down", f),
             "ln_attn": ones((n, h)),
             "ln_mlp": ones((n, h)),
         },
         "ln_final": ones((h,)),
-        "lm_head": init((h, cfg.vocab_size), h),
+        "lm_head": init(specs["lm_head"], (h, cfg.vocab_size), h),
     }
+
+
+def shard_params(params: Params, cfg: MoEConfig, mesh) -> Params:
+    """This rank's shard of every leaf of a whole MoE tree by
+    :func:`param_specs`."""
+    return llama.shard_tree(params, param_specs(cfg), mesh)
+
+
+def gather_params(params: Params, cfg: MoEConfig, mesh) -> Params:
+    """The whole MoE tree from every rank's shards, on every rank; for
+    tests and checks."""
+    return llama.gather_tree(params, param_specs(cfg), mesh)
+
+
+class Layout(llama.Layout):
+    """The dense :class:`.llama.Layout` (attention half, embed, lm_head,
+    the batch over data x fsdp and the loss) plus the experts: this rank's
+    range of them (:func:`expert_range`), the expert x tensor group that
+    sums the expert FFN's partial outputs, and the data x fsdp group that
+    sums the load-balancing statistics.  ``expert`` is no batch axis: the
+    ranks along it hold the same rows and the same replicated leaves, so
+    no gradient is summed over it.  The MoE keeps the whole sequence
+    outside attention (no ``seq_parallel``): a routing group is a whole
+    batch row, under ring and Ulysses as without them."""
+
+    def __init__(self, cfg: MoEConfig, mesh=None, attn_fn=None):
+        self.experts = expert_range(cfg, mesh)
+        super().__init__(cfg, mesh, attn_fn)
+        if mesh is None:
+            self.et = self.batch = None
+            self.batch_shards = 1
+            return
+        self.et = mesh.group("expert", "tensor")
+        self.batch = mesh.group("data", "fsdp")
+        self.batch_shards = mesh.size("data", "fsdp")
+
+    def specs(self) -> Params:
+        return param_specs(self.cfg)
 
 
 # -- routing + expert layer ---------------------------------------------------
@@ -200,61 +315,104 @@ def route(probs: torch.Tensor, k: int,
     return dispatch, combine
 
 
-def _moe_ffn(cfg: MoEConfig, lp: Params,
-             y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _moe_ffn(cfg: MoEConfig, lp: Params, y: torch.Tensor,
+             layout: Optional[Layout] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sparse expert FFN.  y: [B, S, h] -> ([B, S, h], aux loss scalar).
     The router product is f32 x f32 (TF32 would flip routing decisions, so
-    nothing here or in its callers turns it on)."""
+    nothing here or in its callers turns it on).
+
+    On a mesh (``layout``) each rank routes its rows in full and runs its
+    own experts: ``y`` and the ``probs`` that feed ``combine`` enter the
+    expert x tensor region through :func:`..parallel.comm.copy_to`, whose
+    backward sums the ranks' partial gradients, and the partial outputs
+    leave it through :func:`..parallel.comm.reduce_from`.  The router and
+    the aux loss see ``probs`` directly, whole on every rank.  The aux
+    loss's two [E] means are over the global batch: the ranks' sums are
+    added over data x fsdp (:func:`..parallel.comm.psum`) before their
+    product."""
+    lay = layout or Layout(cfg)
+    b, s, _ = y.shape
     probs = torch.softmax(y.float() @ lp["router"], dim=-1)      # [B,S,E]
-    dispatch, combine = route(probs, cfg.experts_per_token,
-                              cfg.capacity(y.shape[1]))
+    dispatch, combine = route(comm.copy_to(probs, lay.et),
+                              cfg.experts_per_token, cfg.capacity(s))
 
     # Switch aux loss: experts balanced when the dispatched fraction (after
     # capacity drops) tracks 1/E
-    frac = dispatch.any(-1).float().mean((0, 1))                 # [E]
-    aux = cfg.experts * (frac * probs.mean((0, 1))).sum()
+    sums = torch.stack([dispatch.any(-1).float().sum((0, 1)),
+                        probs.sum((0, 1))])                       # [2,E]
+    frac, mean_probs = comm.psum(sums, lay.batch) / (
+        b * lay.batch_shards * s)
+    aux = cfg.experts * (frac * mean_probs).sum()
 
+    first, last = lay.experts
+    if last - first < cfg.experts:
+        dispatch = dispatch[:, :, first:last]
+        combine = combine[:, :, first:last]
+    y = comm.copy_to(y, lay.et)
     xin = torch.einsum("bsec,bsh->ebch", dispatch.to(cfg.dtype), y)
     gated = torch.nn.functional.silu(
-        torch.einsum("ebch,ehf->ebcf", xin, lp["w_gate"])
-    ) * torch.einsum("ebch,ehf->ebcf", xin, lp["w_up"])
-    out = torch.einsum("ebcf,efh->ebch", gated, lp["w_down"])
+        torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_gate"], 1))
+    ) * torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_up"], 1))
+    out = torch.einsum("ebcf,efh->ebch", gated, lay.w(lp["w_down"], 2))
     # combine: the weighted un-dispatch back to [B, S, h]
     y_out = torch.einsum("ebch,bsec->bsh", out, combine.to(cfg.dtype))
-    return y_out, aux
+    return comm.reduce_from(y_out, lay.et), aux
 
 
-def _layer(cfg: MoEConfig, cos, sin, x,
+def ffn_over_expert_shards(cfg: MoEConfig, lp: Params, y: torch.Tensor,
+                           shards: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The expert FFN of one layer (``lp``: that layer's leaves) split
+    over ``shards`` expert ranks held in one process: each shard runs the
+    mesh's per-rank body (:func:`_moe_ffn` over a
+    :class:`..parallel.mesh.MeshCoord` of ``expert`` = ``shards``) on its
+    slice of the expert leaves and of ``dispatch`` / ``combine``, and the
+    partial outputs are summed in shard order, where a mesh sums them with
+    ``reduce_from``.  Autograd sums ``y``'s and ``probs``' partial
+    gradients over the shards, as ``copy_to``'s backward does on a mesh.
+    The aux loss is the first shard's (every shard computes it alike).
+    For checks that drive the mesh's seam on one device."""
+    from ..parallel.mesh import MeshCoord, plan_axes
+
+    plan = plan_axes(shards, expert=shards)
+    specs = param_specs(cfg)["layers"]
+    out = aux = None
+    for i in range(shards):
+        coord = MeshCoord(plan, {"expert": i})
+        mine = {**lp, **{name: shard_leaf(lp[name], specs[name][1:], coord)
+                         for name in EXPERT_LEAVES}}
+        part, a = _moe_ffn(cfg, mine, y, Layout(cfg, coord))
+        out = part if out is None else out + part
+        aux = a if aux is None else aux
+    return out, aux
+
+
+def _layer(lay: Layout, cos, sin, x,
            lp) -> Tuple[torch.Tensor, torch.Tensor]:
     """One MoE transformer block.  x: [B, S, H] -> (x', aux)."""
-    y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    b, s, _ = y.shape
-    q = (y @ lp["wq"]).reshape(b, s, cfg.heads, cfg.head_dim)
-    k = (y @ lp["wk"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    v = (y @ lp["wv"]).reshape(b, s, cfg.kv_heads, cfg.head_dim)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    a = attention(cfg, q, k, v)
-    x = x + a.reshape(b, s, -1) @ lp["wo"]
-
-    y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    ff, aux = _moe_ffn(cfg, lp, y)
+    x = llama._attn_half(lay, cos, sin, x, lp)
+    y = rms_norm(x, lp["ln_mlp"], lay.cfg.rms_eps)
+    ff, aux = _moe_ffn(lay.cfg, lp, y, lay)
     return x + ff, aux
 
 
 # -- forward / loss / training ------------------------------------------------
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor,
-                   cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+                   layout: Optional[Layout] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(final-norm hidden states [B, S, hidden], mean router aux loss over
     the layers): everything before the vocab projection.  With
     ``cfg.remat`` and grad enabled, each layer runs under
-    ``cfg.remat_policy``."""
-    x = torch.nn.functional.embedding(tokens, params["embed"]).to(cfg.dtype)
+    ``cfg.remat_policy``.  ``layout``: this rank's part of a sharded model
+    (None: the whole model on one device)."""
+    lay = layout or Layout(cfg)
+    x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
+    x = x.to(cfg.dtype)
     cos, sin = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
                            device=x.device)
-    block = functools.partial(_layer, cfg, cos, sin)
+    block = functools.partial(_layer, lay, cos, sin)
     if cfg.remat and torch.is_grad_enabled():
         block = training.remat(block, cfg.remat_policy)
     auxes = []
@@ -265,38 +423,61 @@ def forward_hidden(params: Params, tokens: torch.Tensor,
     return x, torch.stack(auxes).mean()
 
 
-def forward(params: Params, tokens: torch.Tensor,
-            cfg: MoEConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+            layout: Optional[Layout] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(logits [B, S, vocab] f32, mean router aux loss): the vocab
     projection in cfg.dtype, then widened."""
-    x, aux = forward_hidden(params, tokens, cfg)
-    return (x @ params["lm_head"]).float(), aux
+    lay = layout or Layout(cfg)
+    x, aux = forward_hidden(params, tokens, cfg, lay)
+    return (x @ lay.whole(params["lm_head"])).float(), aux
 
 
-def loss_fn(params: Params, tokens: torch.Tensor,
-            cfg: MoEConfig) -> torch.Tensor:
+def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
+            layout: Optional[Layout] = None) -> torch.Tensor:
     """Next-token cross entropy over [B, S] (tokens [B, S+1]) plus
-    ``cfg.router_aux_weight`` times the router's load-balancing loss."""
+    ``cfg.router_aux_weight`` times the router's load-balancing loss.  On
+    a mesh, ``tokens`` are this rank's rows and the result its share of
+    the global loss (:meth:`Layout.reduce_loss` sums the shares)."""
+    lay = layout or Layout(cfg)
     if cfg.xent_chunk > 0:
-        x, aux = forward_hidden(params, tokens[:, :-1], cfg)
+        x, aux = forward_hidden(params, tokens[:, :-1], cfg, lay)
         ce = training.chunked_next_token_xent(
-            x, params["lm_head"], tokens, cfg.xent_chunk)
-        return ce + cfg.router_aux_weight * aux
-    logits, aux = forward(params, tokens[:, :-1], cfg)
-    return training.next_token_xent(logits, tokens) \
-        + cfg.router_aux_weight * aux
+            x, lay.whole(params["lm_head"]), tokens, cfg.xent_chunk)
+    else:
+        logits, aux = forward(params, tokens[:, :-1], cfg, lay)
+        ce = training.next_token_xent(logits, tokens)
+    loss = ce + cfg.router_aux_weight * aux
+    return loss if lay.loss_scale == 1.0 else loss * lay.loss_scale
 
 
-def make_train_step(cfg: MoEConfig, optimizer=None, device=None):
-    """(step, init_all, optimizer) on one device, with
-    :func:`.llama.make_train_step`'s contract (``device`` None means CUDA,
-    and raises without it; ``optimizer`` an optimizer object,
-    ``"adam8bit"`` or None for ``training.adamw(3e-4, weight_decay=0.1)``).
-    The attention is the dense model's route: flash where
-    :func:`..ops.flash_attention.use_flash` passes, plain otherwise."""
+def make_train_step(cfg: MoEConfig, optimizer=None, device=None, mesh=None,
+                    attn_fn=None):
+    """(step, init_all, optimizer) with :func:`.llama.make_train_step`'s
+    contract (``device`` None means CUDA, and raises without it;
+    ``optimizer`` an optimizer object, ``"adam8bit"`` or None for
+    ``training.adamw(3e-4, weight_decay=0.1)``).  The attention is the
+    dense model's route: flash where
+    :func:`..ops.flash_attention.use_flash` passes, plain otherwise.
+
+    ``mesh`` shards the step as :class:`Layout` says, the experts over
+    ``expert``: ``init_all`` draws this rank's shards alone
+    (:func:`init_params`), the same tree at every world size; ``step``
+    takes this rank's rows (its coordinate along data x fsdp) and returns
+    the global loss.  ``attn_fn``: ring or Ulysses attention over the seq
+    axis."""
     dev = resolve_device(device)
+    if mesh is None:
+        return training.make_train_step(
+            lambda params, tokens: loss_fn(params, tokens, cfg),
+            lambda generator: init_params(cfg, generator, dev),
+            optimizer,
+        )
+    llama.check_mesh_step(dev, mesh, optimizer)
+    lay = Layout(cfg, mesh, attn_fn)
     return training.make_train_step(
-        lambda params, tokens: loss_fn(params, tokens, cfg),
-        lambda generator: init_params(cfg, generator, dev),
-        optimizer,
+        lambda params, tokens: loss_fn(params, tokens, cfg, lay),
+        lambda generator: init_params(cfg, generator, mesh.device, mesh),
+        optimizer, reduce_grads=lay.reduce_grads,
+        reduce_loss=lay.reduce_loss,
     )

@@ -2,14 +2,15 @@
 ranks (one GPU per rank), the collectives of the sharded model, and
 sequence parallelism (ring and Ulysses attention).
 
-Counterpart of ``tpu_network_operator/parallel/``.  The pipeline
-schedules, the collectives sweep and expert parallelism are later slices
-(ROADMAP.md, queue 1 item 3).
+Counterpart of ``tpu_network_operator/parallel/``.  Expert parallelism
+lives in the MoE model (``models/moe.py``); the pipeline schedules and
+the collectives sweep are later slices (ROADMAP.md, queue 1 item 3).
 """
 
 from .mesh import (  # noqa: F401
     AXES,
     Mesh,
+    MeshCoord,
     MeshPlan,
     dcn_collective,
     init_process_group,

@@ -21,6 +21,9 @@ Which backward a collective needs depends on what follows it:
 * :func:`copy_to` (identity; backward all-reduces) and :func:`reduce_from`
   (all-reduce; backward identity) are Megatron's f and g around a
   column-parallel then row-parallel pair;
+* :func:`psum` (all-reduce; backward all-reduces) sums statistics of the
+  ranks' different rows that every rank's share of the loss then reads
+  (the MoE's load-balancing loss);
 * :func:`all_to_all` trades a split dim for a concatenated one (Ulysses);
 * :func:`ring_hop` sends tensors to the next rank of a ring and receives
   the previous rank's (ring attention), outside autograd.
@@ -155,6 +158,17 @@ class _ReduceFrom(torch.autograd.Function):
         return g, None
 
 
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
 def _a2a(x: torch.Tensor, group, split_dim: int,
          concat_dim: int) -> torch.Tensor:
     n = _n(group)
@@ -212,6 +226,13 @@ def reduce_from(x: torch.Tensor, group) -> torch.Tensor:
     """All-reduce of the region's partial sums; backward is the identity
     (Megatron's g)."""
     return x if group is None else _ReduceFrom.apply(x, group)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """All-reduce of per-rank partial sums that each rank's share of the
+    loss reads in full; backward all-reduces, since every rank's share
+    depends on every rank's input."""
+    return x if group is None else _Psum.apply(x, group)
 
 
 def all_to_all(x: torch.Tensor, group, split_dim: int,

@@ -38,10 +38,11 @@ from ..bootstrap import BootstrapConfig, gpu_rank
 
 AXES = ("data", "fsdp", "pipe", "expert", "seq", "tensor")
 # the groups over several axes that the sharded train step reduces over:
-# the batch (data x fsdp) and, with sequence parallelism, data x seq and
-# data x fsdp x seq
+# the batch (data x fsdp), with sequence parallelism data x seq and
+# data x fsdp x seq, and the MoE's expert x tensor (each rank's partial
+# sum of the expert FFN)
 MULTI_AXIS_GROUPS = (("data", "fsdp"), ("data", "seq"),
-                     ("data", "fsdp", "seq"))
+                     ("data", "fsdp", "seq"), ("expert", "tensor"))
 BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=10)
 
@@ -126,23 +127,18 @@ def validate_axis_order(order: Sequence[str]) -> Tuple[str, ...]:
     return tuple(order)
 
 
-class Mesh:
-    """This rank's view of the job mesh: the plan, the rank layout, this
-    rank's coordinate on every axis, its device, the ``DeviceMesh`` and
-    the process groups.  :meth:`group` is None for axes of total size 1,
-    which makes every collective over them the identity
-    (:mod:`.comm`)."""
+class MeshCoord:
+    """A rank's place on a plan: the axis sizes and its coordinate on
+    each, which is all that drawing or slicing its shards needs.  Built
+    alone it stands for any rank of a job with no process group, as a
+    check on one card does: :meth:`group` is None for every axis, so a
+    layout over it computes that rank's part with every collective left
+    out, for the caller to stand in for."""
 
-    def __init__(self, plan: MeshPlan, device: torch.device, device_mesh,
-                 multi_groups: Dict[Tuple[str, ...], object]):
+    def __init__(self, plan: MeshPlan, coord: Dict[str, int]):
         self.plan = plan
-        self.device = device
-        self.device_mesh = device_mesh
         self.ranks = np.arange(plan.size()).reshape(plan.shape)
-        self.rank = dist.get_rank()
-        where = np.argwhere(self.ranks == self.rank)[0]
-        self.coord = dict(zip(plan.names, (int(i) for i in where)))
-        self._multi = multi_groups
+        self.coord = {a: int(coord.get(a, 0)) for a in plan.names}
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -158,6 +154,28 @@ class Mesh:
         for a in axes:
             i = i * self.plan.axis_sizes[a] + self.coord[a]
         return i
+
+    def group(self, *axes: str):
+        """No process group: None, for every axis."""
+        return None
+
+
+class Mesh(MeshCoord):
+    """This rank's view of the job mesh: the plan, the rank layout, this
+    rank's coordinate on every axis, its device, the ``DeviceMesh`` and
+    the process groups.  :meth:`group` is None for axes of total size 1,
+    which makes every collective over them the identity
+    (:mod:`.comm`)."""
+
+    def __init__(self, plan: MeshPlan, device: torch.device, device_mesh,
+                 multi_groups: Dict[Tuple[str, ...], object]):
+        ranks = np.arange(plan.size()).reshape(plan.shape)
+        self.rank = dist.get_rank()
+        where = np.argwhere(ranks == self.rank)[0]
+        super().__init__(plan, dict(zip(plan.names, (int(i) for i in where))))
+        self.device = device
+        self.device_mesh = device_mesh
+        self._multi = multi_groups
 
     def group(self, *axes: str):
         """The process group over ``axes``; None where they span one rank."""

@@ -1,5 +1,6 @@
 """``workload generate``: KV-cache decode throughput on one device or
-over a mesh of data x fsdp x tensor ranks."""
+over a mesh of data x fsdp x tensor ranks (the seq, expert and pipe axes
+replicate)."""
 
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ import time
 
 import torch
 
-from .common import (LATER_SLICE, batch_rows, build_mesh, emit,
+from .common import (batch_rows, build_mesh, emit,
                      init_distributed, llama_presets, log, maybe_profile,
                      mesh_report, pick_preset, sync)
 
@@ -16,11 +17,6 @@ def cmd_generate(args) -> int:
     from ..models.generate import make_generate_fn
     from ..models.llama import init_params, shard_params
 
-    if args.pipe > 1 or args.expert > 1:
-        raise SystemExit(
-            f"serving over --pipe / --expert: not in the port yet "
-            f"({LATER_SLICE})"
-        )
     bootstrap, device = init_distributed(args.bootstrap, args.device)
     mesh = build_mesh(args, bootstrap, device)
     cfg = pick_preset(llama_presets(), args.preset, "llama")

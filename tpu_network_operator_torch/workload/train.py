@@ -1,5 +1,6 @@
 """``workload train`` / ``workload convert``: training throughput on one
-device or over a mesh (dense Llama), with resumable checkpoints
+device or over a mesh (dense Llama, and the MoE with its experts over
+``--expert``), with resumable checkpoints
 (``--checkpoint-dir``) and a token file (``--data``), and HF-checkpoint
 import."""
 
@@ -29,8 +30,6 @@ def _refuse_on_mesh(args) -> None:
     this slice: each exits with its name, none falls back."""
     later = [name for name, on in (
         ("--pipe > 1", args.pipe > 1),
-        ("--expert > 1", args.expert > 1),
-        ("--model moe", args.model == "moe"),
         ("--optimizer adam8bit", args.optimizer == "adam8bit"),
         ("--checkpoint-dir", bool(args.checkpoint_dir)),
     ) if on]
@@ -82,17 +81,9 @@ def cmd_train(args) -> int:
     presets = moe_presets() if args.model == "moe" else llama_presets()
     cfg = sidecar_cfg or pick_preset(presets, args.preset, args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
-    if args.model == "moe":
-        from ..models.moe import make_train_step
-
-        step, init_all, _ = make_train_step(cfg, optimizer=optimizer,
-                                            device=device)
-    else:
-        from ..models.llama import make_train_step
-
-        step, init_all, _ = make_train_step(
-            cfg, optimizer=optimizer, device=device, mesh=mesh,
-            attn_fn=_sp_attn_fn(args, mesh))
+    step, init_all, _ = _train_step_factory(args.model)(
+        cfg, optimizer=optimizer, device=device, mesh=mesh,
+        attn_fn=_sp_attn_fn(args, mesh))
     params, opt_state = init_all(torch.Generator(device).manual_seed(0))
 
     start_step = 0
