@@ -97,11 +97,32 @@ Phases, each printing JSON lines; any failure exits non-zero:
     of an ``expert`` axis of 8 (one expert a rank; no process group), slab
     by slab: the seconds, the parameters and ``max_memory_allocated``
     (under 30 GB), and the two ranks' replicated leaves the same bits;
-20. the kernel table: each kernel's time at its path's shapes beside its
+20. mesh_world1_adam8: the adam8 cell's ``llama3-1b`` and then
+    ``moe-small`` trained with optimizer "adam8bit" through a world-1
+    NCCL mesh (``adamw8bit(mesh=, param_specs=)``) beside the
+    single-device adam8 step from the same seed, 5 steps each (a warm-up,
+    3 timed, 1 profiled): the same losses and every leaf, code and scale
+    the same bits, one adam8_fused launch a step, its device ms in the
+    step;
+21. adam8_virtual_shards: every virtual rank of ``llama3-1b``'s 12 leaves
+    at fsdp 2 x tensor 4 and at tensor 2, and of ``moe-small``'s 13 at
+    expert 8 and at expert 2 x tensor 4, stepped twice in one process
+    (``optim8bit.update_virtual_ranks``: one kernel launch a rank a step
+    over its per-shard leaves and the concatenated rows of its
+    global-block leaves): each rank's parameters, codes and scales the
+    same bits as its slice of the whole tree stepped by the kernel; each
+    rank's kernel ms against its bytes bound, and each leaf's path;
+22. checkpoint_mesh: phase 9 through a world-1 NCCL mesh, every leaf
+    saved as a DTensor: the round trip the same bits, the resumed loss
+    the uninterrupted one; the mesh's save restored on one device, and a
+    one-device save restored through the mesh, the same bits; the save's
+    return, write and restore seconds and the bytes;
+23. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
-    backward outputs), and its launches in every path above.
+    backward outputs), kernel 6 per virtual rank, and its launches in
+    every path above.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
 steps with carried state, bit for bit, each leaf shape alone, the 12
@@ -135,6 +156,7 @@ import contextlib
 import copy
 import dataclasses
 import io
+import itertools
 import json
 import math
 import shutil
@@ -332,6 +354,16 @@ INIT_EXPERTS = 8
 # a rank's mixtral-8x7b tree at expert 8 (about 7.24 B parameters, 14.5
 # GB in bf16) plus one f32 expert slab (7.5 GB) must stay under this
 INIT_PEAK_LIMIT = 30e9
+# the 8-bit AdamW on shards: the adam8 cell's model and moe-small with
+# adamw8bit through a world-1 mesh (MESH_A8_STEPS each way: a warm-up,
+# timed steps, a profiled one), and every virtual rank of these meshes
+# stepped in one process (A8_VIRTUAL_STEPS) against the whole tree's update
+MESH_A8_STEPS = 5
+A8_VIRTUAL_MESHES = {
+    "llama3-1b": (dict(fsdp=2, tensor=4), dict(tensor=2, fsdp=1)),
+    "moe-small": (dict(expert=8, fsdp=1), dict(expert=2, tensor=4, fsdp=1)),
+}
+A8_VIRTUAL_STEPS = 2
 
 
 def emit(payload: dict) -> None:
@@ -2544,6 +2576,452 @@ def phase_init_shards() -> dict:
     return launches
 
 
+@contextlib.contextmanager
+def world1_mesh(tag: str):
+    """The all-ones mesh of a world-1 NCCL group started from a bootstrap
+    file under ``SCRATCH/tag`` through the workload's ``init_distributed``
+    and ``build_mesh``; the group is destroyed and the file removed on
+    exit."""
+    import torch.distributed as dist
+
+    from tpu_network_operator_torch.workload.common import (build_mesh,
+                                                            init_distributed)
+
+    directory = SCRATCH / tag
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / "jax-coordinator.json"
+    _write_bootstrap(path)
+    boot, dev = init_distributed(str(path), "cuda")
+    try:
+        check(dist.get_backend() == "nccl",
+              f"the mesh's backend is {dist.get_backend()}, not nccl")
+        yield build_mesh(argparse.Namespace(tensor=1, seq=1, expert=1,
+                                            pipe=1), boot, dev)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
+
+
+def _a8_cells():
+    """(name, model module, config, seed, batch, seq) of the two adamw8bit
+    cells run through the mesh: the adam8 cell's llama3-1b and
+    moe-small."""
+    from tpu_network_operator_torch.models import llama, moe
+
+    return (("llama3-1b", llama, train_cfg(remat_policy="ffn",
+                                           xent_chunk=A8_CHUNK),
+             SEED + 9, A8_BATCH, A8_SEQ),
+            ("moe-small", moe, moe.MoEConfig.small(), SEED + 14, MOE_BATCH,
+             MOE_SEQ))
+
+
+def phase_mesh_world1_adam8() -> dict:
+    """Each adamw8bit cell through a world-1 NCCL mesh with optimizer
+    "adam8bit" (``adamw8bit(mesh=, param_specs=)``) beside the
+    single-device adam8 step from the same seed: the same losses and the
+    same bits of every leaf, code and scale after MESH_A8_STEPS steps, one
+    adam8_fused launch a step, the update's device ms in a profiled
+    step."""
+    from tpu_network_operator_torch.workload.common import batch_rows
+
+    t_phase = time.perf_counter()
+    out = {}
+    with world1_mesh("mesh_world1_adam8") as mesh:
+        for tree, model, cfg, seed, batch, seq in _a8_cells():
+            runs = {}
+            for side, m in (("single", None), ("mesh", mesh)):
+                step, init_all, _ = model.make_train_step(
+                    cfg, optimizer="adam8bit", device="cuda", mesh=m)
+                gen = torch.Generator("cuda").manual_seed(seed)
+                torch.cuda.reset_peak_memory_stats()
+                params, opt_state = init_all(gen)
+                tokens = batch_rows(torch.randint(
+                    0, cfg.vocab_size, (batch, seq + 1), device="cuda",
+                    generator=gen), m)
+                params, opt_state, losses, step_s, per_step, first_s = \
+                    run_steps(step, params, opt_state, tokens,
+                              MESH_A8_STEPS - 2)
+
+                def run():
+                    nonlocal params, opt_state
+                    params, opt_state, _ = step(params, opt_state, tokens)
+
+                prof = profile_steps(run, 1, follow="adam8")
+                peak = torch.cuda.max_memory_allocated()
+                state = flat_state(params, opt_state)
+                # the single side's state waits on the host
+                kept = state if m is not None else {
+                    k: t.to("cpu", copy=True) for k, t in state.items()}
+                runs[side] = {
+                    "state": kept, "count": opt_state["count"],
+                    "losses": losses, "per_step": per_step,
+                    "first_step_s": first_s, "step_s": step_s,
+                    "median_step_s": statistics.median(step_s),
+                    "adam8_fused_ms_in_step":
+                        prof["ms_per_step_by_group"].get("adam8_fused"),
+                    "adam8_launches_in_profiled_step":
+                        len(prof["launches_of_adam8"]),
+                    "max_memory_allocated_gib": peak / 2**30}
+                del params, opt_state, state, step, kept
+                torch.cuda.empty_cache()
+            single, meshed = runs["single"], runs["mesh"]
+            differ = [k for k, t in meshed["state"].items() if not torch.equal(
+                bits(t), bits(single["state"][k].to(t.device)))]
+            n_state = len(meshed["state"])
+            del single["state"], meshed["state"]
+            torch.cuda.empty_cache()
+            want = {**remat_launches(cfg.layers), "adam8_fused": 1}
+            emit({"phase": "mesh_world1_adam8", "preset": tree,
+                  "mesh": mesh.shape, "layers": cfg.layers,
+                  "remat_policy": cfg.remat_policy, "batch": batch,
+                  "seq": seq, "optimizer": "adam8bit",
+                  "steps": MESH_A8_STEPS, "count": meshed["count"],
+                  "losses": meshed["losses"],
+                  "single_device_losses": single["losses"],
+                  "state_tensors": n_state,
+                  "state_tensors_differing": differ,
+                  **{k: meshed[k] for k in (
+                      "first_step_s", "step_s", "median_step_s",
+                      "adam8_fused_ms_in_step",
+                      "adam8_launches_in_profiled_step",
+                      "max_memory_allocated_gib")},
+                  **{f"single_device_{k}": single[k] for k in (
+                      "step_s", "median_step_s", "adam8_fused_ms_in_step",
+                      "max_memory_allocated_gib")},
+                  "launches_per_step": meshed["per_step"][-1]})
+            check(meshed["losses"] == single["losses"],
+                  f"{tree}: world-1 mesh adam8 losses {meshed['losses']} are "
+                  f"not the single device's {single['losses']}")
+            check(not differ, f"{tree}: world-1 mesh adam8 state differs from "
+                              f"the single device's: {differ}")
+            check(meshed["count"] == MESH_A8_STEPS,
+                  f"{tree}: count {meshed['count']}")
+            check(all(p == want for p in meshed["per_step"]
+                      + single["per_step"])
+                  and meshed["adam8_launches_in_profiled_step"] == 1,
+                  f"{tree}: adam8 launches per step: mesh "
+                  f"{meshed['per_step']}, single {single['per_step']}, "
+                  f"expected {want}")
+            out[tree] = {"launches": meshed["per_step"][-1],
+                         "adam8_fused_ms_in_step":
+                             meshed["adam8_fused_ms_in_step"],
+                         "single_device_adam8_fused_ms_in_step":
+                             single["adam8_fused_ms_in_step"]}
+    emit({"phase": "mesh_world1_adam8_done",
+          "seconds": time.perf_counter() - t_phase})
+    return out
+
+
+def phase_checkpoint_mesh() -> dict:
+    """phase_checkpoint through a world-1 NCCL mesh: the adamw8bit step on
+    the mesh, batches through ``sharded_batches``, a save of every leaf as
+    a DTensor (``TrainCheckpointer(mesh=, specs=)``) after 2 steps, 1 more
+    step; the save restored in place into a fresh mesh state must be the
+    same bits and the resumed step give the same loss; the same save
+    restored on one device, and a one-device save of that state restored
+    through the mesh, the same bits."""
+    from tpu_network_operator_torch.models.convert import param_specs
+
+    cfg = train_cfg(layers=CKPT_LAYERS, remat_policy="ffn",
+                    xent_chunk=A8_CHUNK)
+    pspecs = param_specs(cfg)
+    SCRATCH.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=SCRATCH))
+    try:
+        path = tmp / "tokens.bin"
+        np.random.default_rng(SEED + 10).integers(
+            0, cfg.vocab_size, 1 << 22, dtype=np.uint32).tofile(path)
+        source = data.MemmapTokens(str(path), vocab_size=cfg.vocab_size)
+        dcfg = data.DataConfig(batch=CKPT_BATCH, seq_len=CKPT_SEQ, seed=SEED)
+        with world1_mesh("checkpoint_mesh") as mesh:
+            step, init_all, opt = make_train_step(
+                cfg, optimizer="adam8bit", device="cuda", mesh=mesh)
+            batches = data.sharded_batches(source, dcfg, mesh)
+            params, opt_state = init_all(
+                torch.Generator("cuda").manual_seed(SEED + 11))
+            specs = (pspecs, opt.state_specs(params, pspecs))
+            losses = []
+            with TrainCheckpointer(tmp / "ckpt", mesh=mesh,
+                                   specs=specs) as ckpt:
+                for _ in range(2):
+                    params, opt_state, loss = step(params, opt_state,
+                                                   next(batches))
+                    losses.append(loss.item())
+                t0 = time.perf_counter()
+                ckpt.save(2, params, opt_state)
+                save_s = time.perf_counter() - t0
+                saved = {k: t.to("cpu", copy=True)
+                         for k, t in flat_state(params, opt_state).items()}
+                params, opt_state, loss = step(params, opt_state,
+                                               next(batches))
+                loss_3 = loss.item()
+                del params, opt_state
+                t0 = time.perf_counter()
+                ckpt.wait()
+                write_s = time.perf_counter() - t0
+                fresh = init_all(torch.Generator("cuda").manual_seed(
+                    SEED + 12))
+                t0 = time.perf_counter()
+                at, params, opt_state = ckpt.restore(fresh)
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t0
+            restored = flat_state(params, opt_state)
+            differ = {k: int((bits(restored[k].cpu()) != bits(t)).sum())
+                      for k, t in saved.items()}
+            resumed = data.sharded_batches(source, dcfg, mesh, start_step=at)
+            _kernels.reset_launches()
+            params, opt_state, loss = step(params, opt_state, next(resumed))
+            loss_resumed = loss.item()
+            launches = dict(_kernels.LAUNCHES)
+            del params, opt_state, fresh, restored
+            torch.cuda.empty_cache()
+
+            # the mesh's save on one device, then a one-device save of
+            # that state restored through the mesh
+            one_step, one_init, _ = make_train_step(
+                cfg, optimizer="adam8bit", device="cuda")
+            with TrainCheckpointer(tmp / "ckpt") as ckpt:
+                at_one, p1, s1 = ckpt.restore(one_init(
+                    torch.Generator("cuda").manual_seed(SEED + 13)))
+            on_one = flat_state(p1, s1)
+            differ_one = {k: int((bits(on_one[k].cpu()) != bits(t)).sum())
+                          for k, t in saved.items()}
+            with TrainCheckpointer(tmp / "one", async_save=False) as ckpt:
+                ckpt.save(2, p1, s1)
+            del p1, s1, on_one
+            templates = init_all(torch.Generator("cuda").manual_seed(
+                SEED + 14))
+            with TrainCheckpointer(tmp / "one", mesh=mesh,
+                                   specs=specs) as ckpt:
+                _, p2, s2 = ckpt.restore(templates)
+            back = flat_state(p2, s2)
+            differ_back = {k: int((bits(back[k].cpu()) != bits(t)).sum())
+                           for k, t in saved.items()}
+            del p2, s2, back, templates, step, init_all, one_step, one_init
+        ckpt_bytes = sum(f.stat().st_size for f in (tmp / "ckpt").rglob("*")
+                         if f.is_file())
+        files = sorted(f.name for f in (tmp / "ckpt" / "2").iterdir())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    emit({"phase": "checkpoint_mesh", "layers": cfg.layers,
+          "mesh": mesh.shape, "batch": CKPT_BATCH, "seq": CKPT_SEQ,
+          "optimizer": "adam8bit", "losses": losses + [loss_3],
+          "resumed_from": at, "loss_uninterrupted": loss_3,
+          "loss_resumed": loss_resumed,
+          "round_trip_mismatched_values": sum(differ.values()),
+          "on_one_device_mismatched_values": sum(differ_one.values()),
+          "one_device_save_through_mesh_mismatched_values":
+              sum(differ_back.values()),
+          "checkpoint_bytes": ckpt_bytes, "files": files,
+          "save_returns_s": save_s, "write_wait_s": write_s,
+          "restore_s": restore_s, "resumed_step_launches": launches})
+    check(at == 2 and at_one == 2, "resumed at the wrong step")
+    check(not any(differ.values()),
+          f"mesh checkpoint round trip changed {differ}")
+    check(not any(differ_one.values()),
+          f"the mesh checkpoint on one device changed {differ_one}")
+    check(not any(differ_back.values()),
+          f"a one-device checkpoint through the mesh changed {differ_back}")
+    check(loss_resumed == loss_3,
+          f"resumed loss {loss_resumed} != uninterrupted {loss_3}")
+    check(launches == {**remat_launches(cfg.layers), "adam8_fused": 1},
+          f"the resumed mesh step's launches {launches}")
+    return launches
+
+
+def _unflat(names, values) -> dict:
+    """A nested tree from key paths (:func:`_leaf_names`) and leaves."""
+    out = {}
+    for name, v in zip(names, values):
+        *path, leaf = name.split("/")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
+def _a8_virtual_grads(start, step: int):
+    """The whole tree's gradients of one step, leaf by leaf in tree order,
+    from a generator seeded by the step (so a run can draw them again)."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 20 + step)
+    for p in start:
+        yield adam8_grad(p.shape, "f32" if p.dtype == torch.float32
+                         else "random", gen)
+
+
+def phase_adam8_virtual_shards(name: str) -> dict:
+    """Each virtual rank of llama3-1b's 12 leaves at fsdp 2 x tensor 4 and
+    at tensor 2, and of moe-small's 13 at expert 8 and at expert 2 x
+    tensor 4, stepped A8_VIRTUAL_STEPS times in one process
+    (``optim8bit.update_virtual_ranks``: one kernel launch a rank a step,
+    over its per-shard leaves and the gathered rows of its global-block
+    leaves): every rank's parameters, codes and scales the same bits as
+    its slice of the whole tree stepped by the kernel; then each rank's
+    kernel time against its bytes bound, and which leaves took which
+    path."""
+    from tpu_network_operator_torch.models import llama, moe
+    from tpu_network_operator_torch.models.llama import shard_leaf
+    from tpu_network_operator_torch.parallel import MeshCoord, plan_axes
+
+    bw, _, _ = peaks(name)
+    out = {}
+    for tree, model, cfg in (("llama3-1b", llama, LlamaConfig.llama3_1b()),
+                             ("moe-small", moe, moe.MoEConfig.small())):
+        opt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD)
+        whole = model.init_params(cfg, torch.Generator("cuda").manual_seed(
+            SEED + 17), "cuda")
+        names = list(_leaf_names(whole))
+        pspecs = model.param_specs(cfg)
+        spec_of = dict(zip(_leaf_names(pspecs), training.tree_leaves(pspecs)))
+        leaves = list(training.tree_leaves(whole))
+        start = [p.to("cpu", copy=True) for p in leaves]
+        state = opt.init(whole)
+        ms, vs = (list(training.tree_leaves(state[k])) for k in ("m", "v"))
+        t0 = time.perf_counter()
+        for i in range(A8_VIRTUAL_STEPS):
+            g = list(_a8_virtual_grads(start, i))
+            optim8bit.adam8_fused(list(zip(leaves, g, ms, vs)),
+                                  opt.consts(i + 1))
+            del g
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        ref = [(p.cpu(), m.q.cpu(), m.scale.cpu(), v.q.cpu(), v.scale.cpu())
+               for p, m, v in zip(leaves, ms, vs)]
+        del whole, state, leaves, ms, vs
+        torch.cuda.empty_cache()
+        for axes in A8_VIRTUAL_MESHES[tree]:
+            plan = plan_axes(math.prod(axes.values()), **axes)
+            coords = [MeshCoord(plan, dict(zip(plan.names, idx))) for idx in
+                      itertools.product(*(range(n) for n in plan.shape))]
+            shards = [[] for _ in coords]
+            for j, p0 in enumerate(start):
+                w = p0.to("cuda")
+                for r, c in enumerate(coords):
+                    shards[r].append(shard_leaf(w, spec_of[names[j]],
+                                                c).clone())
+                del w
+            ranks = []
+            for c, sh in zip(coords, shards):
+                params = _unflat(names, sh)
+                ropt = optim8bit.adamw8bit(A8_LR, weight_decay=A8_WD,
+                                           mesh=c, param_specs=pspecs)
+                st = ropt.init(params)
+                ranks.append((c, params, ropt, st))
+            del shards
+            launches = []
+            for i in range(A8_VIRTUAL_STEPS):
+                gsh = [[] for _ in coords]
+                for j, gw in enumerate(_a8_virtual_grads(start, i)):
+                    for r, c in enumerate(coords):
+                        gsh[r].append(shard_leaf(gw, spec_of[names[j]], c))
+                    del gw
+                _kernels.reset_launches()
+                optim8bit.update_virtual_ranks([
+                    (c, list(zip(training.tree_leaves(p), g,
+                                 training.tree_leaves(st["m"]),
+                                 training.tree_leaves(st["v"]))),
+                     list(training.tree_leaves(ropt.plans(p))))
+                    for (c, p, ropt, st), g in zip(ranks, gsh)],
+                    opt.consts(i + 1))
+                torch.cuda.synchronize()
+                launches.append(dict(_kernels.LAUNCHES))
+                del gsh
+            # each rank's tensors and cut of each leaf, by name
+            per_rank = []
+            for c, p, ropt, st in ranks:
+                sspecs = ropt.state_specs(p, pspecs)["m"]
+                cut = dict(zip(_leaf_names(sspecs),
+                               training.tree_leaves(sspecs)))
+                per_rank.append((c, {n: ((q, m.q, m.scale, v.q, v.scale),
+                                         (cut[n].q, cut[n].q, cut[n].scale,
+                                          cut[n].q, cut[n].scale))
+                                     for n, q, m, v in zip(
+                                         names, training.tree_leaves(p),
+                                         training.tree_leaves(st["m"]),
+                                         training.tree_leaves(st["v"]))}))
+            differ = []
+            for j, n in enumerate(names):
+                want = [t.to("cuda") for t in ref[j]]
+                for c, tensors in per_rank:
+                    got, cuts = tensors[n]
+                    for what, a, b, spec in zip(A8_NAMES, got, want, cuts):
+                        if not torch.equal(bits(a),
+                                           bits(shard_leaf(b, spec, c))):
+                            differ.append([n, what, c.coord])
+                del want
+            del per_rank
+            rows, path = [], {}
+            for c, p, ropt, st in ranks:
+                plans = list(training.tree_leaves(ropt.plans(p)))
+                path = {n: a or "per_shard" for n, a in zip(names, plans)}
+                run = _a8_rank_run(c, ranks, plans)
+                k = opt.consts(A8_VIRTUAL_STEPS + 1)
+                rows.append({"rank": c.coord,
+                             "bytes": sum(adam8_bytes(t[0]) for t in run),
+                             "kernel_ms": time_ms(
+                                 lambda: optim8bit.adam8_fused(run, k),
+                                 iters=5, reps=5)})
+                rows[-1]["bound_ms"] = rows[-1]["bytes"] / bw * 1e3
+                del run
+            emit({"phase": "adam8_virtual_shards", "preset": tree,
+                  "mesh": plan.axis_sizes, "ranks": len(coords),
+                  "steps": A8_VIRTUAL_STEPS, "path": path,
+                  "launches_per_step": launches,
+                  "whole_tree_steps_s": whole_s,
+                  "per_rank": rows, "differing": differ[:20],
+                  "bound": "bytes / 3.35 TB/s: each rank's leaves and "
+                           "gathered rows read and written once"})
+            check(not differ, f"{tree} at {plan.axis_sizes}: virtual ranks "
+                              f"differ from the whole tree: {differ[:5]}")
+            check(all(n["adam8_fused"] == len(coords) for n in launches),
+                  f"{tree} at {plan.axis_sizes}: adam8_fused launches "
+                  f"{launches}, expected {len(coords)} a step")
+            mesh_name = "_".join(f"{a}{n}" for a, n in axes.items() if n > 1)
+            out[f"{tree}_{mesh_name}"] = {"launches": launches[-1],
+                                          "per_rank": rows, "path": path}
+            del ranks
+            torch.cuda.empty_cache()
+        del start, ref
+    return out
+
+
+def _a8_rank_run(coord, ranks, plans) -> list:
+    """One virtual rank's kernel table as :func:`optim8bit.update_shards`
+    builds it: its per-shard leaves, and for each global-block leaf the
+    rows of the ranks along its axis, concatenated, with its own scales;
+    fresh gradients as :func:`adam8_grad` draws them (a zero gradient
+    sends a block with a zero moment down the kernel's exact path, which
+    a training step rarely takes)."""
+    gen = torch.Generator("cuda").manual_seed(SEED + 30)
+
+    def grad(p):
+        return adam8_grad(p.shape, "f32" if p.dtype == torch.float32
+                          else "random", gen)
+
+    index = {tuple(c.coord.values()): r for r, (c, *_) in enumerate(ranks)}
+    trees = [(list(training.tree_leaves(p)),
+              list(training.tree_leaves(st["m"])),
+              list(training.tree_leaves(st["v"]))) for _, p, _, st in ranks]
+    own_p, own_m, own_v = trees[index[tuple(coord.coord.values())]]
+    run = []
+    for j, axis in enumerate(plans):
+        if axis is None:
+            run.append((own_p[j], grad(own_p[j]), own_m[j], own_v[j]))
+            continue
+        peers = [index[tuple(i if a == axis else c
+                             for a, c in coord.coord.items())]
+                 for i in range(coord.size(axis))]
+        p = torch.cat([trees[q][0][j] for q in peers], dim=-1)
+        mq = torch.cat([trees[q][1][j].q for q in peers], dim=-1)
+        vq = torch.cat([trees[q][2][j].q for q in peers], dim=-1)
+        run.append((p, grad(p),
+                    optim8bit.QTensor(mq, own_m[j].scale.clone()),
+                    optim8bit.QTensor(vq, own_v[j].scale.clone())))
+    return run
+
+
 def _leaf_names(tree, prefix=""):
     """Key paths in training.tree_leaves order."""
     for k, v in tree.items():
@@ -2699,7 +3177,7 @@ def ring_chunk_entries(gen, bw, peak) -> dict:
 
 def phase_table(name: str, launches: dict, train_launches: dict,
                 adam8: dict, moe_runs: dict, more_launches: dict,
-                ring_runs: dict):
+                ring_runs: dict, mesh_adam8: dict, virtual: dict):
     bw, bf16_peak, f32_peak = peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -2872,6 +3350,18 @@ def phase_table(name: str, launches: dict, train_launches: dict,
             "launches": moe_runs["adam8_launches_per_step"]["adam8_fused"],
             "ms": moe_runs["adam8_in_step_ms"],
             "bound_ms": moe_runs["adam8_bound_ms"], "bound_by": "bytes"},
+        # on the mesh: in the world-1 mesh's step, and each virtual rank's
+        # one launch over its shards and gathered rows
+        "mesh_world1_adam8": {
+            tree: {"launches": run["launches"]["adam8_fused"],
+                   "ms_in_step": run["adam8_fused_ms_in_step"],
+                   "single_device_ms_in_step":
+                       run["single_device_adam8_fused_ms_in_step"]}
+            for tree, run in mesh_adam8.items()},
+        "virtual_shards": {
+            mesh_name: {"launches": run["launches"]["adam8_fused"],
+                        "per_rank": run["per_rank"], "bound_by": "bytes"}
+            for mesh_name, run in virtual.items()},
     })
     # each kernel's launches in the import, convert -> train and offload
     # paths, each read just after its own run
@@ -2929,8 +3419,16 @@ def main(argv=None) -> int:
     for n, counts in phase_expert_virtual().items():
         more_launches[f"expert_virtual_{n}_shards"] = counts
     more_launches["init_shards_mixtral_2_ranks"] = phase_init_shards()
+    mesh_adam8 = phase_mesh_world1_adam8()
+    for tree, run in mesh_adam8.items():
+        more_launches[f"mesh_world1_adam8_{tree}_step"] = run["launches"]
+    virtual = phase_adam8_virtual_shards(name)
+    for mesh_name, run in virtual.items():
+        more_launches[f"adam8_virtual_shards_{mesh_name}_step"] = \
+            run["launches"]
+    more_launches["checkpoint_mesh_resumed_step"] = phase_checkpoint_mesh()
     phase_table(name, launches, train_launches, adam8, moe_runs,
-                more_launches, ring_runs)
+                more_launches, ring_runs, mesh_adam8, virtual)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -169,19 +169,19 @@ def test_workload_train_moe_over_expert_on_two_launched_ranks():
     assert lines[0]["first_loss"] == lines[1]["first_loss"]
 
 
-# The ids are stable names. Cases 1 and 2 keep theirs: a mesh now runs
-# --expert and --model moe, so they hold the MoE's combinations that
-# still exit by name.
+# The ids are stable names.  Case 0 is the one refusal left; cases 1 to 4
+# pinned refusals that the mesh's 8-bit AdamW and sharded checkpoints
+# removed, so each now holds that its combination runs on a mesh and still
+# exits with --pipe 2.
 @pytest.mark.parametrize("flags,named", [
     pytest.param(dict(pipe=2), "--pipe > 1", id="flags0---pipe > 1"),
-    pytest.param(dict(expert=2, model="moe", optimizer="adam8bit"),
-                 "--optimizer adam8bit",
+    pytest.param(dict(expert=2, model="moe", optimizer="adam8bit"), None,
                  id="flags1---expert > 1, --model moe"),
-    pytest.param(dict(model="moe", checkpoint_dir="ckpt"),
-                 "--checkpoint-dir", id="flags2---model moe"),
-    pytest.param(dict(optimizer="adam8bit"), "--optimizer adam8bit",
+    pytest.param(dict(model="moe", checkpoint_dir="ckpt"), None,
+                 id="flags2---model moe"),
+    pytest.param(dict(optimizer="adam8bit"), None,
                  id="flags3---optimizer adam8bit"),
-    pytest.param(dict(checkpoint_dir="ckpt"), "--checkpoint-dir",
+    pytest.param(dict(checkpoint_dir="ckpt"), None,
                  id="flags4---checkpoint-dir"),
 ])
 def test_train_refuses_what_this_slice_does_not_shard(flags, named):
@@ -190,7 +190,10 @@ def test_train_refuses_what_this_slice_does_not_shard(flags, named):
     args = Namespace(**{**dict(pipe=1, expert=1, model="llama",
                                optimizer="adamw", checkpoint_dir=None),
                         **flags})
-    with pytest.raises(SystemExit, match=f"{named} on a mesh of more than "
+    if named is None:
+        train._refuse_on_mesh(args)          # runs on a mesh now
+        args.pipe = 2
+    with pytest.raises(SystemExit, match="--pipe > 1 on a mesh of more than "
                                          "one process: not in the port yet "
                                          r"\(ROADMAP.md, queue 1 item 3\)"):
         train._refuse_on_mesh(args)
@@ -204,7 +207,9 @@ def test_reference_refusals_come_first():
     with pytest.raises(SystemExit, match="ulysses cannot nest"):
         cli.main(["train", "--device", "cpu", "--pipe", "2", "--seq", "2",
                   "--sp-impl", "ulysses"])
-    with pytest.raises(SystemExit, match="convert over a mesh"):
+    # convert takes the mesh flags now: over one process a 2-way axis is
+    # refused as train refuses it, before any file is read
+    with pytest.raises(ValueError, match="does not divide device count 1"):
         cli.main(["convert", "--device", "cpu", "--hf-path", "hf",
                   "--checkpoint-dir", "ckpt", "--tensor", "2"])
     # one process cannot hold a 2-way axis

@@ -764,6 +764,62 @@ def test_adam8_kernel_mixed_tree_in_one_call(cuda):
             assert torch.equal(_bits(a), _bits(r)), what
 
 
+@pytest.mark.parametrize("case,axes", [
+    # 128-wide shards of 256-blocks: straddled, stepped on gathered rows
+    ("straddled", dict(fsdp=2, tensor=4)),
+    # 256-wide shards: whole blocks, stepped per shard
+    ("per_shard", dict(fsdp=2, tensor=2)),
+])
+def test_adam8_kernel_on_virtual_shards_is_the_whole_leaf_sliced(cuda, case,
+                                                                 axes):
+    # a bf16 [1024, 512] leaf cut (fsdp, tensor) over virtual ranks in one
+    # process (optim8bit.update_virtual_ranks), two steps, one kernel
+    # launch a rank a step: each rank's p, codes and scales the same bits
+    # as its slice of the whole leaf stepped by the kernel
+    from tpu_network_operator_torch.parallel import MeshCoord, plan_axes
+
+    spec = ("fsdp", "tensor")
+    opt = topt.adamw8bit(3e-4, weight_decay=0.1)
+    whole = (torch.randn(1024, 512, device="cuda", generator=cuda) * 0.1
+             ).bfloat16()
+    grads = [(torch.randn(whole.shape, device="cuda", generator=cuda) * 1e-2
+              ).bfloat16() for _ in range(2)]
+    plan = plan_axes(2 * axes["tensor"], **axes)
+    ranks = []
+    for f in range(2):
+        for t in range(axes["tensor"]):
+            coord = MeshCoord(plan, {"fsdp": f, "tensor": t})
+            p = tllama.shard_leaf(whole, spec, coord).clone()
+            ropt = topt.adamw8bit(3e-4, weight_decay=0.1, mesh=coord,
+                                  param_specs={"w": spec})
+            ranks.append((coord, p, ropt, ropt.init({"w": p})))
+    want = {"p": whole.clone()}
+    want_state = opt.init(want)
+    for step, g in enumerate(grads, start=1):
+        topt.adam8_fused([(want["p"], g, want_state["m"]["p"],
+                           want_state["v"]["p"])], opt.consts(step))
+        before = _kernels.LAUNCHES["adam8_fused"]
+        topt.update_virtual_ranks([
+            (coord, [(p, tllama.shard_leaf(g, spec, coord), st["m"]["w"],
+                      st["v"]["w"])], [ropt.plans({"w": p})["w"]])
+            for coord, p, ropt, st in ranks], opt.consts(step))
+        assert _kernels.LAUNCHES["adam8_fused"] == before + len(ranks)
+    gathered = case == "straddled"
+    for coord, p, ropt, st in ranks:
+        assert (ropt.plans({"w": p})["w"] == "tensor") == gathered
+        sspec = ropt.state_specs({"w": p}, {"w": spec})["m"]["w"]
+        m, v = st["m"]["w"], st["v"]["w"]
+        wm, wv = want_state["m"]["p"], want_state["v"]["p"]
+        for name, got, ref, sp in (
+                ("param", p, want["p"], spec), ("m codes", m.q, wm.q, spec),
+                ("m scales", m.scale, wm.scale, sspec.scale),
+                ("v codes", v.q, wv.q, spec),
+                ("v scales", v.scale, wv.scale, sspec.scale)):
+            assert torch.equal(_bits(got),
+                               _bits(tllama.shard_leaf(ref, sp, coord))), (
+                coord.coord, name)
+
+
 def test_adam8_step_captured_in_a_cuda_graph(cuda):
     # one optimizer step captured in a CUDA graph (the leaf table is a
     # kernel parameter, captured by value) and replayed gives the bits of

@@ -22,7 +22,8 @@ trees, the reference's layout:
 
 :func:`cfg_to_json` / :func:`cfg_from_json` write and read the
 ``cfg.json`` sidecar of ``workload convert`` in the reference's schema, so
-either package reads the other's.
+either package reads the other's; :func:`shard_params` cuts an imported
+tree into a rank's shards for ``convert`` over a mesh.
 """
 
 from __future__ import annotations
@@ -381,6 +382,23 @@ def load_hf_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16,
 
 def family(cfg) -> str:
     return "llama" if isinstance(cfg, LlamaConfig) else "moe"
+
+
+def param_specs(cfg) -> Params:
+    """The family's training layout (``llama`` or ``moe``
+    ``param_specs``)."""
+    from . import llama, moe
+
+    return (llama if family(cfg) == "llama" else moe).param_specs(cfg)
+
+
+def shard_params(params: Params, cfg, mesh) -> Params:
+    """This rank's shards of an imported (whole) tree in the family's
+    training layout: the reference's ``assign_shardings``, each leaf cut
+    by its :func:`param_specs` entry and this rank's part kept."""
+    from .llama import shard_tree
+
+    return shard_tree(params, param_specs(cfg), mesh)
 
 
 def cfg_to_json(cfg) -> str:

@@ -234,11 +234,6 @@ def param_specs(cfg: LlamaConfig) -> Params:
     }
 
 
-def _zip_specs(params: Params, specs: Params, fn) -> Params:
-    return {k: _zip_specs(v, specs[k], fn) if isinstance(v, Mapping)
-            else fn(v, specs[k]) for k, v in params.items()}
-
-
 def shard_leaf(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
     """This rank's shard of one whole leaf (a contiguous copy where it is
     cut): dim i cut into ``mesh.size(axis)`` chunks where ``spec`` names
@@ -261,7 +256,7 @@ def shard_leaf(leaf: torch.Tensor, spec, mesh) -> torch.Tensor:
 def shard_tree(params: Params, specs: Params, mesh) -> Params:
     """:func:`shard_leaf` over a tree, each leaf paired with its spec by
     name."""
-    return _zip_specs(params, specs,
+    return training.map_by_name(params, specs,
                       lambda leaf, spec: shard_leaf(leaf, spec, mesh))
 
 
@@ -275,7 +270,7 @@ def gather_tree(params: Params, specs: Params, mesh) -> Params:
                 leaf = comm.all_gather(leaf, mesh.group(axis), dim)
         return leaf
 
-    return _zip_specs(params, specs, gather)
+    return training.map_by_name(params, specs, gather)
 
 
 def shard_params(params: Params, cfg: LlamaConfig, mesh) -> Params:
@@ -403,7 +398,7 @@ class Layout:
         if self.mesh is None:
             return grads
         specs = list(training.tree_leaves(
-            _zip_specs(params, self.specs(), lambda _, s: s)))
+            training.map_by_name(params, self.specs(), lambda _, s: s)))
         buckets: Dict[tuple, List[int]] = {}
         for i, spec in enumerate(specs):
             axes = tuple(a for a in self.batch_axes if a not in spec)
@@ -546,13 +541,20 @@ def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
 
 
 def check_mesh_step(device: torch.device, mesh, optimizer) -> None:
-    """The refusals of a train step on a mesh, dense or MoE."""
+    """The refusals of a train step on a mesh, dense or MoE: a device
+    that is not the mesh's, and an 8-bit optimizer built for another mesh
+    (``"adam8bit"`` builds it for this one), whose state would not be
+    this rank's slice of the global state."""
+    from .optim8bit import AdamW8bit
+
     if device.type != mesh.device.type:
         raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-    if optimizer == "adam8bit" and mesh.plan.size() > 1:
+    if isinstance(optimizer, AdamW8bit) and optimizer.mesh is not mesh \
+            and mesh.plan.size() > 1:
         raise ValueError(
-            "adamw8bit on a mesh of more than one rank is a later slice "
-            "(ROADMAP.md, queue 1 item 3)"
+            "an adamw8bit optimizer on a mesh of more than one rank must be "
+            "built with that mesh and the model's param_specs (or pass "
+            "'adam8bit')"
         )
 
 
@@ -563,7 +565,8 @@ def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
     place; ``init_all(generator) -> (params, opt_state)``, the generator
     living on the device.  ``device`` None means CUDA, and raises without
     it.  ``optimizer``: an optimizer object, ``"adam8bit"``
-    (``optim8bit.adamw8bit()``) or None (``training.adamw(3e-4,
+    (``optim8bit.adamw8bit()``, on a mesh built with it and
+    :func:`param_specs`) or None (``training.adamw(3e-4,
     weight_decay=0.1)``).
 
     ``mesh`` (a :class:`..parallel.mesh.Mesh`) shards the step over its
@@ -589,5 +592,5 @@ def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
         lambda generator: shard_params(
             init_params(cfg, generator, mesh.device), cfg, mesh),
         optimizer, reduce_grads=lay.reduce_grads,
-        reduce_loss=lay.reduce_loss,
+        reduce_loss=lay.reduce_loss, mesh=mesh, param_specs=lay.specs(),
     )

@@ -479,5 +479,5 @@ def make_train_step(cfg: MoEConfig, optimizer=None, device=None, mesh=None,
         lambda params, tokens: loss_fn(params, tokens, cfg, lay),
         lambda generator: init_params(cfg, generator, mesh.device, mesh),
         optimizer, reduce_grads=lay.reduce_grads,
-        reduce_loss=lay.reduce_loss,
+        reduce_loss=lay.reduce_loss, mesh=mesh, param_specs=lay.specs(),
     )

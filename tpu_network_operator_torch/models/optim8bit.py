@@ -1,8 +1,8 @@
 """Block-wise 8-bit AdamW: the moments stored in one byte per value.
 
-Counterpart of ``tpu_network_operator/models/optim8bit.py`` on one device.
-The layout is the reference's, so a state moves between the two packages
-leaf by leaf (:func:`adam8_state_from_jax`):
+Counterpart of ``tpu_network_operator/models/optim8bit.py``.  The layout
+is the reference's, so a state moves between the two packages leaf by
+leaf (:func:`adam8_state_from_jax`):
 
 * quantization blocks run along the LAST axis of each parameter, 256
   values per block when the last dim divides 256, one whole-row block
@@ -27,6 +27,14 @@ leaves, p written in place.  :class:`AdamW8bit` sends every CPU leaf
 through the plain version and every CUDA leaf through one kernel call,
 whatever its shape: there is no fallback and no switch.
 
+On a mesh (``adamw8bit(mesh=, param_specs=)``) each rank steps its shards
+of the global tree, and its state is its slice of the single-device state
+of that tree, the scales included (:func:`mesh_leaf_plan`): a leaf whose
+shards cut no quantization block steps its shard where it lies, and one
+whose last-dim shards would cut blocks steps the global blocks on rows
+gathered over the axis that cuts them, keeping its scales whole along
+that axis.  Either way the bits are the single-device update's.
+
 Both versions divide by 127 and 448 (and by the bias corrections), as the
 reference's source text and its jnp path do.  The reference's Pallas
 kernel, run through XLA, multiplies by float32(1/127) instead, so its
@@ -37,14 +45,18 @@ test_torch_optim8bit.py`` pins it).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict, List, Mapping, NamedTuple, Sequence, Tuple
+from typing import (Any, Callable, Dict, List, Mapping, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from .. import resolve_device
 from ..ops import _kernels
-from .training import Tree, bias_corrections, tree_leaves, tree_map
+from ..parallel import comm
+from ..parallel.mesh import global_shape
+from .training import (Tree, bias_corrections, map_by_name, tree_leaves,
+                       tree_map)
 
 BLOCK = 256
 RATIO_CLIP = 10.0
@@ -140,16 +152,19 @@ def dequantize(qt: QTensor, shape) -> torch.Tensor:
     return rows.reshape(shape)
 
 
-def _zero_q(p: torch.Tensor, qdtype: torch.dtype, block: int) -> QTensor:
-    """quantize(zeros like p) built directly: codes 0, scales 1.0."""
+def _zero_q(p: torch.Tensor, qdtype: torch.dtype, block: int,
+            last: Optional[int] = None) -> QTensor:
+    """quantize(zeros like p) built directly: codes 0, scales 1.0.
+    ``last``: the length of the rows the blocks are cut from (p's last
+    dim; on the global-block path of a mesh, the global last dim)."""
     if p.dim() == 0:
         return QTensor(q=torch.zeros((), dtype=qdtype, device=p.device),
                        scale=torch.ones(1, dtype=torch.float32,
                                         device=p.device))
-    b = _leaf_block(p.shape[-1], block)
+    last = p.shape[-1] if last is None else last
     return QTensor(
         q=torch.zeros(p.shape, dtype=qdtype, device=p.device),
-        scale=torch.ones(*p.shape[:-1], p.shape[-1] // b,
+        scale=torch.ones(*p.shape[:-1], last // _leaf_block(last, block),
                          dtype=torch.float32, device=p.device),
     )
 
@@ -329,6 +344,101 @@ def adam8_fused(leaves: Sequence[Leaf], k: Consts) -> None:
         _kernels.count_launch("adam8_fused")
 
 
+# -- on a mesh ------------------------------------------------------------------
+
+
+def mesh_leaf_plan(mesh, spec, shape, block: int = BLOCK) -> Optional[str]:
+    """Where one leaf of global ``shape``, sharded by ``spec`` over
+    ``mesh``, takes its update: None where each rank steps its own shard,
+    because the shard's quantization blocks are the global blocks; else
+    the mesh axis over whose ranks the leaf's rows are gathered to step
+    the global blocks (the reference's ``_mesh_leaf_plan``, without the
+    TPU's 32-row tiling, which the CUDA kernel does not need).
+
+    Blocks run along the last axis, so only the axis that shards the last
+    dim can cut one: a leaf steps per shard when its last dim is whole on
+    every rank or its local last dim is a multiple of ``block``.  So
+    whole-row blocks split over an axis, and ``block``-blocks whose shard
+    is not a whole number of them, take the gather."""
+    if mesh is None or not shape:
+        return None
+    axis = spec[-1]
+    if axis is None or mesh.size(axis) == 1:
+        return None
+    if (shape[-1] // mesh.size(axis)) % block == 0:
+        return None
+    return axis
+
+
+def update_shards(leaves: Sequence[Leaf], plans: Sequence[Optional[str]],
+                  k: Consts, gather: Callable, coord) -> None:
+    """One rank's step of its shards, in place: ``plans`` gives each
+    leaf's :func:`mesh_leaf_plan`.  A per-shard leaf steps as it lies; a
+    global-block leaf steps its rows gathered along the last dim over its
+    axis (``gather(x, axis)``: the shards of every rank along ``axis``,
+    concatenated in order), its scales being the global blocks' already,
+    and keeps this rank's slice (``coord``: a mesh or a
+    :class:`..parallel.mesh.MeshCoord`).  Every leaf goes through one
+    :func:`adam8_fused` call where it lies on CUDA, through
+    :func:`adam8_plain` on the CPU."""
+    run, back = [], []
+    for (p, g, m, v), axis in zip(leaves, plans):
+        if axis is None:
+            run.append((p, g, m, v))
+            continue
+        whole = (gather(p, axis), gather(g, axis),
+                 QTensor(gather(m.q, axis), m.scale),
+                 QTensor(gather(v.q, axis), v.scale))
+        run.append(whole)
+        back.append(((p, m.q, v.q), whole, axis))
+    cuda = [leaf for leaf in run if leaf[0].device.type == "cuda"]
+    if cuda:
+        adam8_fused(cuda, k)
+    adam8_plain([leaf for leaf in run if leaf[0].device.type != "cuda"], k)
+    for local, (p, _, m, v), axis in back:
+        i, n = coord.coord[axis], coord.size(axis)
+        for dst, src in zip(local, (p, m.q, v.q)):
+            dst.copy_(src.chunk(n, dim=-1)[i])
+
+
+def update_virtual_ranks(ranks: Sequence[Tuple[Any, Sequence[Leaf],
+                                              Sequence[Optional[str]]]],
+                         k: Consts) -> None:
+    """The mesh's step for every rank of one plan, in one process with no
+    process group: ``ranks`` holds each rank's (``MeshCoord``, leaves,
+    plans), every rank of the plan once.  Each rank runs
+    :func:`update_shards`, its global-block leaves on rows concatenated
+    from the shards of the ranks along their axis as they were before the
+    step, which is what the all-gather gives each rank on a mesh.  The
+    seam that the card's check of the sharded update drives."""
+    index = {tuple(c.coord.values()): r for r, (c, _, _) in enumerate(ranks)}
+    before = [{i: (p.clone(), g, m.q.clone(), v.q.clone())
+               for i, ((p, g, m, v), axis) in enumerate(zip(leaves, plans))
+               if axis is not None} for _, leaves, plans in ranks]
+    for coord, leaves, plans in ranks:
+        rows = {}
+        for i, ((p, g, m, v), axis) in enumerate(zip(leaves, plans)):
+            if axis is None:
+                continue
+            peers = [index[tuple(j if a == axis else c
+                                 for a, c in coord.coord.items())]
+                     for j in range(coord.size(axis))]
+            for t, shards in zip((p, g, m.q, v.q),
+                                 zip(*(before[q][i] for q in peers))):
+                rows[t.data_ptr()] = torch.cat(shards, dim=-1)
+        update_shards(leaves, plans, k,
+                      lambda x, axis: rows[x.data_ptr()], coord)
+
+
+def gather_last(x: torch.Tensor, group) -> torch.Tensor:
+    """The shards of ``x`` of every rank of ``group`` concatenated along
+    the last dim, in rank order; one-byte codes cross as their raw bytes
+    (float8 is not a collective dtype everywhere)."""
+    if x.element_size() == 1:
+        return comm.all_gather(x.view(torch.uint8), group, -1).view(x.dtype)
+    return comm.all_gather(x, group, -1)
+
+
 # -- the optimizer ---------------------------------------------------------------
 
 
@@ -341,19 +451,53 @@ class AdamW8bit:
     gradient (``grads`` in :func:`.training.tree_leaves` order) and
     returns (params, state).  ``count`` is a host int, and the bias
     corrections reach the kernel by value, so a step never waits for the
-    device."""
+    device.
+
+    With ``mesh`` and ``param_specs`` (the model's, paired with the leaves
+    by name), ``params`` are this rank's shards, and ``init`` and
+    ``apply`` keep this rank's slice of the single-device state of the
+    global tree (:func:`update_shards`)."""
 
     def __init__(self, lr: float = 3e-4, b1: float = 0.9, b2: float = 0.999,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 block: int = BLOCK):
+                 block: int = BLOCK, mesh=None, param_specs=None):
+        if mesh is not None and param_specs is None:
+            raise ValueError("adamw8bit on a mesh needs the param_specs")
         self.lr, self.weight_decay = lr, weight_decay
         self.b1, self.b2, self.eps, self.block = b1, b2, eps, block
+        self.mesh, self.param_specs = mesh, param_specs
+
+    def plans(self, params: Tree) -> Tree:
+        """Each leaf's :func:`mesh_leaf_plan` (all None off a mesh)."""
+        if self.mesh is None:
+            return tree_map(lambda p: None, params)
+        return map_by_name(params, self.param_specs, lambda p, spec:
+                           mesh_leaf_plan(self.mesh, spec, global_shape(
+                               p.shape, spec, self.mesh.plan), self.block))
 
     def init(self, params: Tree) -> Dict[str, Any]:
-        return {"count": 0,
-                "m": tree_map(lambda p: _zero_q(p, torch.int8, self.block),
-                              params),
-                "v": tree_map(lambda p: _zero_q(p, F8, self.block), params)}
+        def zeros(qdtype):
+            def one(p, axis):
+                last = None if axis is None else (
+                    p.shape[-1] * self.mesh.size(axis))
+                return _zero_q(p, qdtype, self.block, last)
+            return map_by_name(params, self.plans(params), one)
+
+        return {"count": 0, "m": zeros(torch.int8), "v": zeros(F8)}
+
+    def state_specs(self, params: Tree, param_specs: Tree) -> Dict[str, Any]:
+        """The mesh specs of ``init(params)``'s leaves (``params`` this
+        rank's shards of ``param_specs``): the codes take their
+        parameter's spec, and so do the scales, but for the last dim of a
+        global-block leaf's, which is whole; ``count``, a host int,
+        None."""
+        def one(spec, axis):
+            spec = tuple(spec)
+            return QTensor(q=spec, scale=spec if axis is None
+                           else spec[:-1] + (None,))
+
+        specs = map_by_name(param_specs, self.plans(params), one)
+        return {"count": None, "m": specs, "v": specs}
 
     def consts(self, count: int) -> Consts:
         c1, c2 = bias_corrections(self.b1, self.b2, count)
@@ -369,23 +513,25 @@ class AdamW8bit:
         if params is None:
             raise ValueError("adamw8bit requires params (weight decay)")
         count = state["count"] + 1
-        k = self.consts(count)
         leaves = list(zip(tree_leaves(params), grads,
                           tree_leaves(state["m"]), tree_leaves(state["v"])))
-        cuda = [leaf for leaf in leaves if leaf[0].device.type == "cuda"]
-        if cuda:
-            adam8_fused(cuda, k)
-        adam8_plain([leaf for leaf in leaves
-                     if leaf[0].device.type != "cuda"], k)
+        mesh = self.mesh
+        update_shards(leaves, list(tree_leaves(self.plans(params))),
+                      self.consts(count),
+                      lambda x, axis: gather_last(x, mesh.group(axis)), mesh)
         state["count"] = count
         return params, state
 
 
 def adamw8bit(learning_rate: float = 3e-4, b1: float = 0.9,
               b2: float = 0.999, eps: float = 1e-8,
-              weight_decay: float = 0.1, block: int = BLOCK) -> AdamW8bit:
-    """The reference's ``adamw8bit`` with its defaults."""
-    return AdamW8bit(learning_rate, b1, b2, eps, weight_decay, block)
+              weight_decay: float = 0.1, block: int = BLOCK, mesh=None,
+              param_specs=None) -> AdamW8bit:
+    """The reference's ``adamw8bit`` with its defaults; ``mesh`` (a
+    :class:`..parallel.mesh.Mesh`) and ``param_specs`` step each rank's
+    shards of the global tree."""
+    return AdamW8bit(learning_rate, b1, b2, eps, weight_decay, block, mesh,
+                     param_specs)
 
 
 def adam8_state_from_jax(state: Any, device=None) -> Dict[str, Any]:

@@ -12,7 +12,7 @@ supplies the gradient and loss reductions (``models/llama.py``
 from __future__ import annotations
 
 import functools
-from typing import Callable, Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import (
@@ -312,6 +312,14 @@ def tree_map(fn: Callable, tree: Tree) -> Tree:
             for k, v in tree.items()}
 
 
+def map_by_name(tree: Tree, specs: Tree, fn: Callable) -> Tree:
+    """``fn(leaf, spec)`` over ``tree``, each leaf paired with the entry of
+    ``specs`` at its key path (never by position: trees from JAX come in
+    sorted key order, the model's specs in declaration order)."""
+    return {k: map_by_name(v, specs[k], fn) if isinstance(v, Mapping)
+            else fn(v, specs[k]) for k, v in tree.items()}
+
+
 def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
     """(1 - b1^count, 1 - b2^count) in f32, as host floats.  The power is
     an f32 ``pow`` of two tensors, as the reference's ``b ** count`` in f32
@@ -344,6 +352,12 @@ class AdamW:
         return {"count": 0,
                 "mu": tree_map(torch.zeros_like, params),
                 "nu": tree_map(torch.zeros_like, params)}
+
+    def state_specs(self, params: Tree, param_specs: Tree) -> Dict[str, object]:
+        """The mesh specs of ``init(params)``'s leaves (``params`` this
+        rank's shards of ``param_specs``): each moment its parameter's;
+        ``count``, a host int, None."""
+        return {"count": None, "mu": param_specs, "nu": param_specs}
 
     @torch.no_grad()
     def apply(self, params: Tree, grads, state) -> Tuple[Tree, Dict]:
@@ -384,6 +398,8 @@ def make_train_step(
     optimizer=None,
     reduce_grads: Optional[Callable] = None,
     reduce_loss: Optional[Callable] = None,
+    mesh=None,
+    param_specs=None,
 ):
     """(step, init_all, optimizer) with the reference's contract:
     ``step(params, opt_state, tokens) -> (params, opt_state, loss)``, the
@@ -391,7 +407,9 @@ def make_train_step(
     counterpart of donating both); ``init_all(generator) -> (params,
     opt_state)``.  ``optimizer`` is an :class:`AdamW`, an
     :class:`.optim8bit.AdamW8bit`, ``"adam8bit"`` (``adamw8bit()`` with the
-    library defaults) or None (``adamw(3e-4, weight_decay=0.1)``).
+    library defaults, on ``mesh`` with ``param_specs``, as the reference's
+    ``make_sharded_train_step`` wires it) or None (``adamw(3e-4,
+    weight_decay=0.1)``).
 
     On a mesh, ``loss_fn`` gives this rank's share of the loss,
     ``reduce_grads(params, grads)`` sums the gradients (in
@@ -402,7 +420,7 @@ def make_train_step(
     if optimizer == "adam8bit":
         from .optim8bit import adamw8bit
 
-        optimizer = adamw8bit()
+        optimizer = adamw8bit(mesh=mesh, param_specs=param_specs)
     optimizer = optimizer or adamw(3e-4, weight_decay=0.1)
 
     def step(params, opt_state, tokens):

@@ -12,10 +12,14 @@ from .mesh import (  # noqa: F401
     Mesh,
     MeshCoord,
     MeshPlan,
+    as_dtensor,
     dcn_collective,
+    global_shape,
+    host_device_mesh,
     init_process_group,
     make_mesh,
     mesh_from_bootstrap,
+    placements,
     plan_axes,
     plan_block,
     plan_from_bootstrap,

@@ -241,6 +241,55 @@ def make_mesh(plan: MeshPlan, device) -> Mesh:
     return Mesh(plan, device, device_mesh, multi)
 
 
+def placements(plan: MeshPlan, spec) -> list:
+    """The DTensor placements of a leaf sharded by ``spec`` (per dim, the
+    mesh axis it is cut over, or None), one per mesh dim in plan order:
+    ``Shard(dim)`` on the axis that cuts ``dim``, ``Replicate`` on every
+    other axis and on axes of one rank."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = {axis: d for d, axis in enumerate(spec) if axis is not None}
+    return [Shard(dims[a]) if a in dims and n > 1 else Replicate()
+            for a, n in plan.axis_sizes.items()]
+
+
+def global_shape(shape, spec, plan: MeshPlan) -> Tuple[int, ...]:
+    """The global shape of a shard of ``shape`` cut by ``spec`` (per dim,
+    the mesh axis it is sharded over, or None) on ``plan``."""
+    return tuple(d * (plan.axis_sizes[a] if a is not None else 1)
+                 for d, a in zip(shape, spec))
+
+
+def as_dtensor(local: torch.Tensor, spec, plan: MeshPlan, device_mesh):
+    """This rank's shard ``local`` of a leaf sharded by ``spec`` viewed as
+    a ``DTensor`` on ``device_mesh`` (whose dims are ``plan``'s, in plan
+    order), without a copy: the global shape is the shard's times the
+    ranks of each axis that cuts it, and nothing is communicated.
+    ``device_mesh`` must be of ``local``'s device type, or ``from_local``
+    moves the shard there."""
+    from torch.distributed.tensor import DTensor
+
+    shape = global_shape(local.shape, spec, plan)
+    stride, step = [], 1
+    for d in reversed(shape):
+        stride.insert(0, step)
+        step *= d
+    return DTensor.from_local(local, device_mesh, placements(plan, spec),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
+
+
+def host_device_mesh(plan: MeshPlan):
+    """A CPU ``DeviceMesh`` of ``plan``'s rank layout with no process
+    groups of its own: what a DTensor of a host copy of a shard is laid
+    out on, where the job's mesh is on the GPUs (a DTensor of a CPU shard
+    on a CUDA mesh would be copied to the card)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return DeviceMesh("cpu", torch.arange(plan.size()).reshape(plan.shape),
+                      mesh_dim_names=plan.names, _init_backend=False)
+
+
 # -- the operator's topology plan ---------------------------------------------
 #
 # The planner's block in the bootstrap file: DCN ring order, a suggested

@@ -1,8 +1,9 @@
 """``workload train`` / ``workload convert``: training throughput on one
 device or over a mesh (dense Llama, and the MoE with its experts over
-``--expert``), with resumable checkpoints
-(``--checkpoint-dir``) and a token file (``--data``), and HF-checkpoint
-import."""
+``--expert``), with AdamW or the 8-bit AdamW, resumable checkpoints
+(``--checkpoint-dir``, sharded on a mesh, restorable onto another mesh
+shape) and a token file (``--data``), and HF-checkpoint import, onto a
+mesh too."""
 
 from __future__ import annotations
 
@@ -11,7 +12,6 @@ import time
 
 import torch
 
-from .. import resolve_device
 from .common import (LATER_SLICE, batch_rows, build_mesh, emit,
                      init_distributed, llama_presets, log, maybe_profile,
                      mesh_report, moe_presets, pick_preset, sync)
@@ -26,18 +26,28 @@ def _train_step_factory(family: str):
 
 
 def _refuse_on_mesh(args) -> None:
-    """The combinations a mesh of more than one process does not run in
-    this slice: each exits with its name, none falls back."""
-    later = [name for name, on in (
-        ("--pipe > 1", args.pipe > 1),
-        ("--optimizer adam8bit", args.optimizer == "adam8bit"),
-        ("--checkpoint-dir", bool(args.checkpoint_dir)),
-    ) if on]
-    if later:
+    """What a mesh of more than one process does not run yet: it exits
+    by name and does not fall back."""
+    if args.pipe > 1:
         raise SystemExit(
-            f"{', '.join(later)} on a mesh of more than one process: not "
-            f"in the port yet ({LATER_SLICE})"
+            f"--pipe > 1 on a mesh of more than one process: not in the "
+            f"port yet ({LATER_SLICE}): the pipeline schedules are item 3e"
         )
+
+
+def _checkpointer(args, cfg, mesh, params, optimizer):
+    """The run's :class:`..models.checkpoint.TrainCheckpointer`: on a mesh,
+    sharded by the family's specs and the optimizer's state specs."""
+    from ..models.checkpoint import TrainCheckpointer
+    from ..models.convert import param_specs
+
+    specs = None
+    if mesh is not None:
+        specs = param_specs(cfg)
+        specs = (specs, optimizer.state_specs(params, specs))
+    return TrainCheckpointer(args.checkpoint_dir, mesh=mesh, specs=specs,
+                             max_to_keep=getattr(args, "keep_checkpoints",
+                                                 3))
 
 
 def _sp_attn_fn(args, mesh):
@@ -81,7 +91,7 @@ def cmd_train(args) -> int:
     presets = moe_presets() if args.model == "moe" else llama_presets()
     cfg = sidecar_cfg or pick_preset(presets, args.preset, args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
-    step, init_all, _ = _train_step_factory(args.model)(
+    step, init_all, opt = _train_step_factory(args.model)(
         cfg, optimizer=optimizer, device=device, mesh=mesh,
         attn_fn=_sp_attn_fn(args, mesh))
     params, opt_state = init_all(torch.Generator(device).manual_seed(0))
@@ -89,10 +99,7 @@ def cmd_train(args) -> int:
     start_step = 0
     ckpt = None
     if args.checkpoint_dir:
-        from ..models.checkpoint import TrainCheckpointer
-
-        ckpt = TrainCheckpointer(args.checkpoint_dir,
-                                 max_to_keep=args.keep_checkpoints)
+        ckpt = _checkpointer(args, cfg, mesh, params, opt)
         if ckpt.latest_step() is not None:
             # loaded in place into the fresh init: one copy of the state
             start_step, params, opt_state = ckpt.restore((params, opt_state))
@@ -173,17 +180,21 @@ def cmd_convert(args) -> int:
     imported parameters and the optimizer's fresh state, plus the
     ``cfg.json`` sidecar; ``workload train --checkpoint-dir`` resumes from
     it with the checkpoint's own geometry (rope scaling included).  The
-    optimizer must be the one ``train`` is then given."""
-    from ..models.checkpoint import TrainCheckpointer
-    from ..models.convert import cfg_to_json, family, load_hf_checkpoint
+    optimizer must be the one ``train`` is then given.  Over a mesh (the
+    process group and mesh flags ``train`` takes), every rank imports the
+    whole tree, keeps its shards in the family's training layout
+    (``convert.shard_params``, the reference's ``assign_shardings``) and
+    saves them with its slice of the optimizer state; rank 0 writes the
+    sidecar.  A checkpoint of one process restores onto a mesh too."""
+    import torch.distributed as dist
 
-    if args.bootstrap or max(args.tensor, args.seq, args.expert,
-                             args.pipe) > 1:
-        raise SystemExit(
-            f"convert over a mesh (--bootstrap, --tensor, --seq, --expert, "
-            f"--pipe): not in the port yet ({LATER_SLICE})"
-        )
-    device = resolve_device(args.device)
+    from ..models.convert import (cfg_to_json, family, load_hf_checkpoint,
+                                  shard_params)
+
+    bootstrap, device = init_distributed(args.bootstrap, args.device)
+    mesh = build_mesh(args, bootstrap, device)
+    if mesh is not None and mesh.plan.size() > 1:
+        _refuse_on_mesh(args)
     with maybe_profile(args.profile, "convert", device):
         params, cfg = load_hf_checkpoint(args.hf_path, device=device)
         log(f"imported {cfg.num_params() / 1e9:.2f}B params from "
@@ -192,12 +203,16 @@ def cmd_convert(args) -> int:
         # saved state has the structure cmd_train restores into
         optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
         _, _, optimizer = _train_step_factory(family(cfg))(
-            cfg, optimizer=optimizer, device=device)
+            cfg, optimizer=optimizer, device=device, mesh=mesh)
+        if mesh is not None:
+            params = shard_params(params, cfg, mesh)
         opt_state = optimizer.init(params)
         os.makedirs(args.checkpoint_dir, exist_ok=True)
-        with open(os.path.join(args.checkpoint_dir, "cfg.json"), "w") as f:
-            f.write(cfg_to_json(cfg))
-        with TrainCheckpointer(args.checkpoint_dir) as ckpt:
+        if mesh is None or dist.get_rank() == 0:
+            with open(os.path.join(args.checkpoint_dir, "cfg.json"),
+                      "w") as f:
+                f.write(cfg_to_json(cfg))
+        with _checkpointer(args, cfg, mesh, params, optimizer) as ckpt:
             ckpt.save(0, params, opt_state)
     emit({
         "metric": "hf checkpoint import",
@@ -206,6 +221,6 @@ def cmd_convert(args) -> int:
         "checkpoint_dir": args.checkpoint_dir,
         "family": family(cfg),
         "rope_scaling": bool(getattr(cfg, "rope_scaling", None)),
-        "mesh": {"devices": 1, "device": str(device)},
+        "mesh": mesh_report(mesh, device),
     })
     return 0
