@@ -117,7 +117,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
     the uninterrupted one; the mesh's save restored on one device, and a
     one-device save restored through the mesh, the same bits; the save's
     return, write and restore seconds and the bytes;
-23. the kernel table: each kernel's time at its path's shapes beside its
+23. collectives_world1: the collectives sweep (``parallel/collectives.py``
+    ``sweep``) over ``fsdp`` of a world-1 NCCL mesh from a bootstrap
+    file, all four ops at 1, 64 and 256 MB, best of 5, on the axis's own
+    one-rank NCCL group: every op's output its input, bit for bit; each
+    point's seconds, algbw and busbw, which at one rank are NCCL's
+    per-call time and not a bandwidth; then ``workload collectives
+    --device cuda --bootstrap`` at that world prints the "nothing to
+    sweep" line;
+24. exec_bench_world1: ``workload exec-bench --device cuda --bootstrap``
+    over a world-1 bootstrap whose plan block puts fsdp first and hints
+    ``hierarchical``, at 1 and 64 MB, best of 3: the line's sha256 is the
+    file's, its axis order and hint the plan's, the planned strategy
+    hierarchical, which at ici 1 runs as ring (no reduce-scatter or
+    all-gather issued), every timing positive; a mangled plan block falls
+    back to the default axis order and ``ring``;
+25. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
@@ -143,6 +158,12 @@ times only the 8-bit AdamW update at the ``llama3-1b`` leaves through
 profiles only the adam8 step (3 steps) and counts its layers' backward
 matmuls.  Both modes use only entry points an older tree has, so they
 compare two trees in one call.
+
+    python3 chip_smoke.py --collectives
+
+runs only phases 23 and 24 (no kernel build) in a fresh process: NCCL's
+per-call floor at one rank there, beside the same phases at the end of
+the whole script.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -364,6 +385,17 @@ A8_VIRTUAL_MESHES = {
     "moe-small": (dict(expert=8, fsdp=1), dict(expert=2, tensor=4, fsdp=1)),
 }
 A8_VIRTUAL_STEPS = 2
+# the collectives at a world of one: the sweep's sizes and best-of count,
+# and exec-bench's over a plan block that puts fsdp first and hints
+# hierarchical
+COLL_SIZES_MB = (1, 64, 256)
+COLL_ITERS = 5
+EXEC_SIZES_MB = (1.0, 64.0)
+EXEC_ITERS = 3
+EXEC_PLAN = {"version": "chip-smoke-1", "ring": ["node-0"], "ringIndex": 0,
+             "collective": "hierarchical",
+             "meshAxisOrder": ["fsdp", "data", "pipe", "expert", "seq",
+                               "tensor"]}
 
 
 def emit(payload: dict) -> None:
@@ -2158,17 +2190,21 @@ def phase_remat_ffn_offload() -> dict:
 # -- the mesh ------------------------------------------------------------------
 
 
-def _write_bootstrap(path: Path) -> None:
+def _write_bootstrap(path: Path, plan=None) -> None:
     """A bootstrap file of the agent's schema for one process with one
-    chip, its coordinator on a free local port."""
+    chip, its coordinator on a free local port, with ``plan`` as its plan
+    block where one is given."""
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    path.write_text(json.dumps({
+    cfg = {
         "version": 1, "coordinator_address": f"127.0.0.1:{port}",
         "num_processes": 1, "process_id": 0,
         "topology": {"num_chips": 1, "chips_per_host": 1, "num_slices": 1},
-    }))
+    }
+    if plan is not None:
+        cfg["plan"] = plan
+    path.write_text(json.dumps(cfg))
 
 
 def _mesh_train(cfg, mesh, steps: int) -> dict:
@@ -2830,6 +2866,171 @@ def phase_checkpoint_mesh() -> dict:
     return launches
 
 
+# -- the collectives -----------------------------------------------------------
+
+
+@contextlib.contextmanager
+def dist_calls(names=("all_reduce", "reduce_scatter_tensor",
+                      "all_gather_into_tensor")):
+    """The ``torch.distributed`` collectives ``names`` counted while the
+    block runs: a dict of calls by name."""
+    import torch.distributed as dist
+
+    counts = dict.fromkeys(names, 0)
+    saved = {n: getattr(dist, n) for n in names}
+
+    def counted(name):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return saved[name](*args, **kwargs)
+        return call
+
+    for n in names:
+        setattr(dist, n, counted(n))
+    try:
+        yield counts
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+
+
+def cli_on_bootstrap(tag: str, argv, plan=None) -> tuple:
+    """The workload CLI's ``argv`` with ``--bootstrap`` a world-1 file
+    (under ``SCRATCH/tag``, with ``plan`` as its plan block) in this
+    process: (its JSON line, the group's backend, the file's sha256, the
+    collectives it called).  The CLI starts the process group; it is
+    destroyed and the file removed here."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    directory = SCRATCH / tag
+    directory.mkdir(parents=True, exist_ok=True)
+    path = directory / "jax-coordinator.json"
+    _write_bootstrap(path, plan)
+    digest = hashlib.sha256(path.read_bytes()).hexdigest()
+    try:
+        with dist_calls() as calls:
+            line = run_cli([*argv, "--bootstrap", str(path)])
+        backend = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(directory, ignore_errors=True)
+    return line, backend, digest, calls
+
+
+def phase_collectives_world1() -> dict:
+    """The collectives sweep over fsdp of a world-1 NCCL mesh (every op's
+    output its input, bit for bit), and ``workload collectives`` at that
+    world ("nothing to sweep")."""
+    from tpu_network_operator_torch.parallel import collectives as coll
+
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    with world1_mesh("collectives_world1") as mesh:
+        backend = torch.distributed.get_backend()
+        results = coll.sweep(mesh, axis="fsdp", sizes_mb=list(COLL_SIZES_MB),
+                             iters=COLL_ITERS)
+        same = {}
+        for op in coll.OPS:
+            fn = coll._collective_fn(op, "fsdp", mesh)
+            for size in COLL_SIZES_MB:
+                x, _ = coll.collective_input(mesh, op, "fsdp", size)
+                want = x.clone()
+                out = fn(x)
+                torch.cuda.synchronize()
+                same[f"{op}@{size}MB"] = (out.shape == want.shape and
+                                          torch.equal(bits(out), bits(want)))
+                del x, want, out
+    torch.cuda.empty_cache()
+    line, cli_backend, _, _ = cli_on_bootstrap(
+        "collectives_cli", ["collectives", "--device", "cuda"])
+    launches = dict(_kernels.LAUNCHES)
+    rows = [r.to_dict() for r in results]
+    emit({"phase": "collectives_world1", "backend": backend,
+          "axis": "fsdp", "iters": COLL_ITERS,
+          "note": "world of one: seconds are NCCL's per-call time at one "
+                  "rank (best of iters); algbw / busbw are size over that "
+                  "time, not a bandwidth of any link",
+          "rows": rows, "output_is_input": same,
+          "cli": line, "cli_backend": cli_backend,
+          "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    check(all(same.values()),
+          f"a world-1 NCCL collective changed its input: {same}")
+    check([(r["op"], r["size_bytes"]) for r in rows] ==
+          [(op, int(size * 1e6)) for op in coll.OPS for size in COLL_SIZES_MB],
+          f"the sweep's points {[(r['op'], r['size_bytes']) for r in rows]}")
+    check(all(r["seconds"] > 0 for r in rows), "a sweep point took no time")
+    check(cli_backend == "nccl", f"workload collectives ran on {cli_backend}")
+    check(line == {"metric": "collective busbw", "value": 0.0,
+                   "unit": "GB/s", "axis": "data", "devices": 1},
+          f"workload collectives at a world of one printed {line}")
+    return launches
+
+
+def phase_exec_bench_world1() -> dict:
+    """``workload exec-bench`` over a world-1 bootstrap with a plan block
+    (fsdp first, ``hierarchical``), and over one whose plan block is
+    mangled."""
+    from tpu_network_operator_torch.parallel.mesh import AXES
+
+    t_phase = time.perf_counter()
+    _kernels.reset_launches()
+    line, backend, digest, calls = cli_on_bootstrap(
+        "exec_bench_planned",
+        ["exec-bench", "--device", "cuda", "--sizes-mb",
+         *(str(s) for s in EXEC_SIZES_MB), "--iters", str(EXEC_ITERS)],
+        plan=EXEC_PLAN)
+    mangled, m_backend, m_digest, _ = cli_on_bootstrap(
+        "exec_bench_mangled",
+        ["exec-bench", "--device", "cuda", "--sizes-mb", "1", "--iters", "1"],
+        plan={"meshAxisOrder": ["fsdp", "data"], "collective": "tree",
+              "version": 3})
+    launches = dict(_kernels.LAUNCHES)
+    emit({"phase": "exec_bench_world1", "backend": backend,
+          "note": "world of one: seconds are NCCL's per-call time at one "
+                  "rank (best of iters), not a bandwidth",
+          "line": line, "collective_calls": calls,
+          "mangled_plan": {k: mangled[k] for k in (
+              "mesh_planned", "mesh_axis_order", "collective_hint",
+              "plan_version", "results")},
+          "kernel_launches": launches,
+          "seconds": time.perf_counter() - t_phase})
+    rows = line["results"]
+    check(backend == m_backend == "nccl",
+          f"exec-bench ran on {backend} / {m_backend}")
+    check(line["bootstrap_sha256"] == digest
+          and mangled["bootstrap_sha256"] == m_digest,
+          "exec-bench's sha256 is not the bootstrap file's")
+    check(line["mesh_axis_order"] == EXEC_PLAN["meshAxisOrder"]
+          and list(line["mesh_planned"]) == EXEC_PLAN["meshAxisOrder"]
+          and line["collective_hint"] == "hierarchical"
+          and line["plan_version"] == EXEC_PLAN["version"],
+          f"exec-bench did not take the plan: {line}")
+    check((line["local_devices"], line["global_devices"]) == (1, 1),
+          f"exec-bench's devices {line['local_devices']} / "
+          f"{line['global_devices']}")
+    check([r["size_mb"] for r in rows] == list(EXEC_SIZES_MB)
+          and all(r["planned_strategy"] == "hierarchical"
+                  and r["planned_s"] == r["hierarchical_s"]
+                  and all(r[k] > 0 for k in ("planned_s", "ring_s",
+                                              "hierarchical_s", "naive_s"))
+                  for r in rows),
+          f"exec-bench's rows {rows}")
+    # hierarchical at ici 1 runs as ring: all-reduces only
+    check(calls["reduce_scatter_tensor"] == calls["all_gather_into_tensor"]
+          == 0 and calls["all_reduce"] > 0,
+          f"hierarchical at ici 1 issued {calls}")
+    check(mangled["mesh_axis_order"] == list(AXES)
+          and mangled["collective_hint"] == "ring"
+          and all(r["planned_strategy"] == "ring"
+                  for r in mangled["results"]),
+          f"a mangled plan block gave {mangled}")
+    return launches
+
+
 def _unflat(names, values) -> dict:
     """A nested tree from key paths (:func:`_leaf_names`) and leaves."""
     out = {}
@@ -3380,8 +3581,17 @@ def main(argv=None) -> int:
                       help="only profile the llama3-1b+ffn+adam8 step and "
                            "count its layers' backward matmuls "
                            "(phase_remat_ffn)")
+    args.add_argument("--collectives", action="store_true",
+                      help="only the collectives at a world of one "
+                           "(phase_collectives_world1, "
+                           "phase_exec_bench_world1) in a fresh process")
     args = args.parse_args(argv)
     name, smi = phase_device()
+    if args.collectives:
+        phase_collectives_world1()
+        phase_exec_bench_world1()
+        print(smi, flush=True)
+        return 0
     phase_build()
     if args.adam8_leaves or args.remat_ffn:
         if args.adam8_leaves:
@@ -3427,6 +3637,8 @@ def main(argv=None) -> int:
         more_launches[f"adam8_virtual_shards_{mesh_name}_step"] = \
             run["launches"]
     more_launches["checkpoint_mesh_resumed_step"] = phase_checkpoint_mesh()
+    more_launches["collectives_world1"] = phase_collectives_world1()
+    more_launches["exec_bench_world1"] = phase_exec_bench_world1()
     phase_table(name, launches, train_launches, adam8, moe_runs,
                 more_launches, ring_runs, mesh_adam8, virtual)
     print(smi, flush=True)

@@ -2,6 +2,7 @@
 ``transformers`` or ``safetensors`` (the card's machine has neither), and
 its entry points refuse to run on the CPU unless asked to."""
 
+import ast
 import json
 import subprocess
 import sys
@@ -36,7 +37,9 @@ def test_port_imports_no_jax_and_no_reference_package():
             f"{PACKAGE}.models.convert", f"{PACKAGE}.bootstrap",
             f"{PACKAGE}.parallel", f"{PACKAGE}.parallel.comm",
             f"{PACKAGE}.parallel.mesh", f"{PACKAGE}.parallel.ring",
-            f"{PACKAGE}.parallel.ulysses"} <= set(mods)
+            f"{PACKAGE}.parallel.ulysses", f"{PACKAGE}.parallel.collectives",
+            f"{PACKAGE}.workload.collectives",
+            f"{PACKAGE}.workload.execbench"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -51,7 +54,39 @@ def test_port_imports_no_jax_and_no_reference_package():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_exec_bench_launcher_imports_no_jax_workload(tmp_path):
+    """``tools/exec_bench_torch.py`` runs the operator's probe -> plan ->
+    agent bootstrap pipeline and imports no ``jax`` and none of the JAX
+    workload's modules; no port module imports it."""
+    workload = [f"tpu_network_operator.{m}"
+                for m in ("models", "parallel", "ops", "workload")]
+    code = (
+        "import importlib.util, json, sys\n"
+        "spec = importlib.util.spec_from_file_location('eb', "
+        "'tools/exec_bench_torch.py')\n"
+        "eb = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(eb)\n"
+        "plan, _, _ = eb.compute_scenario_plan(4, 'skewed', 1)\n"
+        f"eb.write_rank_bootstraps({str(tmp_path)!r}, 't', 4, 2, plan)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] == 'jax' "
+        f"or any(n == w or n.startswith(w + '.') for w in {workload!r}))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    for path in [*(ROOT / PACKAGE).rglob("*.py"), ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text())
+        imported = [a.name for n in ast.walk(tree)
+                    if isinstance(n, ast.Import) for a in n.names]
+        imported += [n.module or "" for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom)]
+        assert not any("exec_bench" in m for m in imported), path
+        assert "spec_from_file_location" not in path.read_text(), path
+
+
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     from tpu_network_operator_torch import resolve_device
     from tpu_network_operator_torch.models import convert as tconvert
     from tpu_network_operator_torch.models import generate as tgen
@@ -94,6 +129,19 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         cli.main(["train", "--preset", "tiny", "--tensor", "2"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tmesh.init_process_group(tboot.BootstrapConfig(), None)
+    # the collectives sweep and the exec bench: NCCL on the card, or
+    # nothing (the bootstrap is read for its sha256 first)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["collectives"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["collectives", "--axis", "fsdp", "--tensor", "2"])
+    boot = tmp_path / "jax-coordinator.json"
+    boot.write_text(json.dumps({
+        "version": 1, "coordinator_address": "127.0.0.1:1",
+        "num_processes": 1, "process_id": 0,
+        "topology": {"num_chips": 1, "chips_per_host": 1, "num_slices": 1}}))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["exec-bench", "--bootstrap", str(boot)])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tllama.make_train_step(cfg, mesh=SimpleNamespace(
             device=torch.device("cuda", 0)))

@@ -185,6 +185,21 @@ class Mesh(MeshCoord):
             return self.device_mesh.get_group(axes[0])
         return self._multi[tuple(axes)]
 
+    def process_group(self, *axes: str):
+        """The process group over ``axes`` even where they span one rank,
+        as a measurement needs: its collective must launch, not be left
+        out.  A group over several axes that :func:`make_mesh` did not
+        build is built here on first use and kept, which every rank must
+        do alike (``new_group`` is collective): ask for it on every rank
+        in the same order."""
+        if len(axes) == 1:
+            return self.device_mesh.get_group(axes[0])
+        key = tuple(a for a in AXES if a in axes)
+        if key not in self._multi:
+            self._multi[key] = _own_subgroup(self.ranks, self.plan.names,
+                                             key)
+        return self._multi[key]
+
     def ring_peers(self, axis: str) -> Tuple[int, int]:
         """(next, previous) global ranks along ``axis``: where this rank's
         ring hop sends and where it receives from."""
@@ -210,6 +225,18 @@ def _subgroups(ranks: np.ndarray, names: Tuple[str, ...],
     return moved.reshape(-1, math.prod(ranks.shape[d] for d in dims))
 
 
+def _own_subgroup(ranks: np.ndarray, names: Tuple[str, ...],
+                  axes: Tuple[str, ...]):
+    """This rank's group over ``axes``, after every rank has built every
+    such group in one fixed order (``new_group`` is collective)."""
+    own = None
+    for members in _subgroups(ranks, names, axes):
+        g = dist.new_group([int(r) for r in members])
+        if dist.get_rank() in members:
+            own = g
+    return own
+
+
 def make_mesh(plan: MeshPlan, device) -> Mesh:
     """The mesh of the initialized process group in plan order; the world
     must be the plan's size.  ``device`` is this rank's device."""
@@ -230,14 +257,9 @@ def make_mesh(plan: MeshPlan, device) -> Mesh:
     device_mesh = init_device_mesh(device.type, plan.shape,
                                    mesh_dim_names=plan.names)
     ranks = np.arange(world).reshape(plan.shape)
-    multi = {}
-    for axes in MULTI_AXIS_GROUPS:
-        if math.prod(plan.axis_sizes[a] for a in axes) == 1:
-            continue
-        for members in _subgroups(ranks, plan.names, axes):
-            g = dist.new_group([int(r) for r in members])
-            if dist.get_rank() in members:
-                multi[axes] = g
+    multi = {axes: _own_subgroup(ranks, plan.names, axes)
+             for axes in MULTI_AXIS_GROUPS
+             if math.prod(plan.axis_sizes[a] for a in axes) > 1}
     return Mesh(plan, device, device_mesh, multi)
 
 

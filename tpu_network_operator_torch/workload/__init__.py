@@ -15,12 +15,17 @@ with fsdp taking the rest), with random weights:
   saving to ``--checkpoint-dir``, whose ``cfg.json`` (from ``convert``)
   gives the model;
 * ``convert`` -- import a Hugging Face Llama or Mixtral checkpoint
-  (``--hf-path``) as a step-0 train checkpoint plus its ``cfg.json``.
+  (``--hf-path``) as a step-0 train checkpoint plus its ``cfg.json``;
+* ``collectives`` -- the all-reduce / all-gather / reduce-scatter /
+  ppermute bandwidth sweep over one mesh axis (``--axis``, default the
+  largest);
+* ``exec-bench`` -- the operator's topology plan executed: the planned
+  DCN all-reduce timed against ring, hierarchical and name-order axes
+  (``--bootstrap`` required; ``tools/exec_bench_torch.py`` launches it).
 
 ``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the timed
-region.  Pipeline and expert parallelism, the MoE, adamw8bit and
-checkpoints on a mesh of more than one process, the collectives sweep and
-the exec bench come with later slices.
+region.  Pipeline parallelism (``train --pipe`` on more than one process)
+comes with a later slice.
 """
 
 from .cli import build_parser, main

@@ -4,7 +4,9 @@ from __future__ import annotations
 
 import argparse
 
+from .collectives import cmd_collectives
 from .common import LLAMA_PRESET_NAMES
+from .execbench import cmd_exec_bench
 from .generate import cmd_generate
 from .train import cmd_convert, cmd_train
 
@@ -41,6 +43,15 @@ def build_parser() -> argparse.ArgumentParser:
         formatter_class=argparse.RawDescriptionHelpFormatter,
     )
     sub = p.add_subparsers(dest="cmd", required=True)
+
+    c = sub.add_parser("collectives", help="bandwidth sweep over a mesh axis")
+    _device_flags(c)
+    _mesh_flags(c)
+    c.add_argument("--axis", default=None, help="mesh axis (default: largest)")
+    c.add_argument("--sizes-mb", type=float, nargs="+",
+                   default=[16.0, 64.0, 256.0])
+    c.add_argument("--iters", type=int, default=5)
+    c.set_defaults(fn=cmd_collectives)
 
     g = sub.add_parser("generate", help="decode throughput")
     _device_flags(g)
@@ -116,6 +127,23 @@ def build_parser() -> argparse.ArgumentParser:
                     help="optimizer whose fresh state is saved beside the "
                          "imported params (train resumes with the same)")
     cv.set_defaults(fn=cmd_convert)
+
+    x = sub.add_parser(
+        "exec-bench",
+        help="execute the bootstrap's topology plan: time the planned "
+             "DCN all-reduce vs ring/hierarchical/naive on the live "
+             "process group (worker half of tools/exec_bench_torch.py)")
+    _device_flags(x)
+    x.add_argument("--bootstrap", default=None,
+                   help="the agent's jax-coordinator.json with its plan "
+                        "block (required): the process group's rendezvous, "
+                        "rank and world, one process per GPU")
+    x.add_argument("--sizes-mb", type=float, nargs="+",
+                   default=[0.25, 1.0, 4.0],
+                   help="payload sizes of the timed gradient all-reduce")
+    x.add_argument("--iters", type=int, default=5,
+                   help="timed iterations per point (best-of)")
+    x.set_defaults(fn=cmd_exec_bench)
     return p
 
 
