@@ -132,7 +132,22 @@ Phases, each printing JSON lines; any failure exits non-zero:
     hierarchical, which at ici 1 runs as ring (no reduce-scatter or
     all-gather issued), every timing positive; a mangled plan block falls
     back to the default axis order and ``ring``;
-25. the kernel table: each kernel's time at its path's shapes beside its
+25. pipeline_virtual: the pipeline's executor with 4 stages held in one
+    process (the in-process wire in place of the pipe axis's hops; one
+    GPU, so no multi-rank NCCL) at the train cell (``llama3-1b``, 6 x
+    2048, full remat, xent 1024, AdamW, phase 6's seed), 6 microbatches,
+    under gpipe, 1f1b and interleaved (2 chunks a stage): each schedule's
+    ``grads_fn`` against autograd of the single-device ``loss_fn`` on the
+    same weights (the loss within 1e-3 relative; every leaf within 1% in
+    relative norm of that loss_fn's gradients taken a microbatch at a
+    time, and within 5% of the whole batch's: other bf16 GEMM shapes
+    round other outputs), a warm-up and
+    3 timed steps with the flash and RMSNorm launches a step asserted (6
+    times the single-device step's), each schedule's step time and peak
+    memory beside the single-device step's; then ``MoEConfig.small`` cut
+    to 4 layers over 2 stages at 4 x 2048, 1f1b with 4 microbatches, 3
+    steps: the loss falls, and its first loss is gpipe's within 5e-2;
+26. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
@@ -164,6 +179,10 @@ compare two trees in one call.
 runs only phases 23 and 24 (no kernel build) in a fresh process: NCCL's
 per-call floor at one rank there, beside the same phases at the end of
 the whole script.
+
+    python3 chip_smoke.py --pipeline
+
+builds the kernels and runs only phase 25.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -396,6 +415,25 @@ EXEC_PLAN = {"version": "chip-smoke-1", "ring": ["node-0"], "ringIndex": 0,
              "collective": "hierarchical",
              "meshAxisOrder": ["fsdp", "data", "pipe", "expert", "seq",
                                "tensor"]}
+# the pipeline over virtual stages in one process: the train cell
+# (llama3-1b, 6 x 2048, full remat, xent 1024, AdamW) over PIPE_STAGES
+# stages and PIPE_MICRO microbatches, each schedule (interleaved with
+# PIPE_V chunks a stage), held to the single-device loss and gradients;
+# then moe-small cut to PIPE_MOE_LAYERS layers over PIPE_MOE_STAGES stages
+PIPE_STAGES, PIPE_MICRO, PIPE_V, PIPE_STEPS = 4, 6, 2, 3
+PIPE_SCHEDULES = ("gpipe", "1f1b", "interleaved")
+PIPE_MOE_LAYERS, PIPE_MOE_STAGES, PIPE_MOE_MICRO = 4, 2, 4
+# the loss to 1e-3 relative of one device's.  The gradients against one
+# device's loss_fn taken a microbatch at a time (the same bf16 GEMM
+# shapes as the units; the sums in another order): GRAD_REL.  Against one
+# device's whole-batch gradients, TRAIN_GRAD_REL: a GEMM over a sixth of
+# the rows rounds its bf16 outputs (the cotangents through 16 layers,
+# each microbatch's weight gradients) where cuBLAS's kernel for the whole
+# batch rounds others, 1.0% to 1.5% in relative norm on an H100 (700 W);
+# the MoE's two schedules (the same estimator, other orders) within the
+# reference's schedule budget
+PIPE_LOSS_REL = 1e-3
+PIPE_MOE_SCHEDULE_TOL = 5e-2
 
 
 def emit(payload: dict) -> None:
@@ -3376,6 +3414,179 @@ def ring_chunk_entries(gen, bw, peak) -> dict:
     return rows
 
 
+def _pipeline_run(step, init_all, tokens, gen, profile=False) -> dict:
+    """A warm-up and PIPE_STEPS timed steps of a pipeline (or the
+    single-device) step from a fresh init: times, losses, peak memory and
+    each kernel's launches per step; with ``profile``, one more step
+    under the profiler (the device's busy share, ms by kernel group)."""
+    torch.cuda.reset_peak_memory_stats()
+    params, opt_state = init_all(gen)
+    params, opt_state, losses, step_s, per_step, first_s = run_steps(
+        step, params, opt_state, tokens, PIPE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    prof = None
+    if profile:
+        prof = profile_steps(lambda: step(params, opt_state, tokens), 1)
+        prof.pop("top_kernels")
+    del params, opt_state
+    torch.cuda.empty_cache()
+    med = statistics.median(step_s)
+    return {"first_step_s": first_s, "step_s": step_s, "median_step_s": med,
+            "tokens_per_s": tokens.shape[0] * (tokens.shape[1] - 1) / med,
+            "losses": losses, "peak_mem_gib": peak / 2**30,
+            "profile": prof, "per_step": per_step}
+
+
+def phase_pipeline_virtual() -> dict:
+    """The pipeline's executor over PIPE_STAGES stages held in one process
+    (``make_pipeline_train_step(..., stages_in_process=)``: the in-process
+    wire hands activations and cotangents between the stages, where a
+    mesh makes one hop pair a tick on the pipe axis's group) at the train
+    cell, each schedule: its grads_fn against autograd of the
+    single-device loss_fn on the same parameters, then timed steps beside
+    the single-device step with the launches a step asserted; then the
+    MoE at 4 layers over 2 stages, 1f1b against gpipe."""
+    from tpu_network_operator_torch.models import moe as tmoe
+    from tpu_network_operator_torch.parallel import pipeline as tpipe
+
+    t_phase = time.perf_counter()
+    cfg = train_cfg()
+    n, m = cfg.layers, PIPE_MICRO
+    gen = torch.Generator("cuda").manual_seed(SEED + 5)
+    params = init_params(cfg, gen, "cuda")           # phase train's draws
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           device="cuda", generator=gen)
+    leaves = [p.requires_grad_() for p in training.tree_leaves(params)]
+    ref_loss = loss_fn(params, tokens, cfg)
+    ref_grads = torch.autograd.grad(ref_loss, leaves)
+    ref_loss = ref_loss.item()
+    # one device's loss_fn a microbatch at a time, the gradients summed
+    # in f32 as the units' are
+    micro_grads = [torch.zeros(p.shape, device="cuda") for p in leaves]
+    for part in tokens.chunk(m):
+        for acc, g in zip(micro_grads, torch.autograd.grad(
+                loss_fn(params, part, cfg) / m, leaves)):
+            acc.add_(g)
+    for p in leaves:
+        p.requires_grad_(False)
+    names = list(_leaf_names(params))
+    # per microbatch, the single-device step's launches (full remat)
+    want = {k: m * v for k, v in remat_launches(n).items()}
+    want["adam8_fused"] = 0
+    runs, counts = {}, {}
+    for schedule in PIPE_SCHEDULES:
+        step, init_all, _ = tpipe.make_pipeline_train_step(
+            cfg, None, m, schedule=schedule, virtual_stages=PIPE_V,
+            device="cuda", stages_in_process=PIPE_STAGES)
+        loss, grads = step.grads_fn(
+            tpipe.chunked_layers(params, step.v), tokens)
+        loss = loss.item()
+        got = [g.reshape(r.shape) for g, r in
+               zip(training.tree_leaves(grads), ref_grads)]
+        checks = {name: grad_ok(g, r)
+                  for name, g, r in zip(names, got, micro_grads)}
+        batch = {name: rel_norm(g, r)
+                 for name, g, r in zip(names, got, ref_grads)}
+        del grads, got
+        loss_rel = abs(loss - ref_loss) / abs(ref_loss)
+        run = _pipeline_run(step, init_all, tokens,
+                            torch.Generator("cuda").manual_seed(SEED + 5),
+                            profile=schedule == "1f1b")
+        per_step = run.pop("per_step")
+        worst = max(checks, key=lambda k: checks[k]["rel_norm"])
+        worst_batch = max(batch, key=batch.get)
+        runs[schedule] = {
+            "virtual_stages": step.v, "loss": loss, "ref_loss": ref_loss,
+            "loss_rel": loss_rel,
+            "worst_grad_vs_microbatched": {worst: checks[worst]},
+            "worst_grad_rel_norm_vs_batch": {worst_batch:
+                                             batch[worst_batch]},
+            "grads_ok": all(c["ok"] for c in checks.values()) and max(
+                batch.values()) <= TRAIN_GRAD_REL,
+            "max_live_graphs": step.stats["max_live_graphs"],
+            "launches_per_step": per_step[-1], **run}
+        emit({"phase": "pipeline_virtual", "schedule": schedule,
+              "stages": PIPE_STAGES, "microbatches": m,
+              **runs[schedule]})
+        check(loss_rel <= PIPE_LOSS_REL,
+              f"pipeline {schedule}: loss {loss} against the single "
+              f"device's {ref_loss}")
+        check(runs[schedule]["grads_ok"],
+              f"pipeline {schedule}: gradients off the single device's: "
+              f"{ {k: c for k, c in checks.items() if not c['ok']} }, "
+              f"against the whole batch's {batch}")
+        check(all(p == want for p in per_step),
+              f"pipeline {schedule} launches {per_step}, expected {want} "
+              "per step")
+        check(run["losses"][-1] < run["losses"][0],
+              f"pipeline {schedule}: the loss did not fall: "
+              f"{run['losses']}")
+        counts[schedule] = per_step[-1]
+        del step, init_all
+    del params, leaves, ref_grads, micro_grads
+    torch.cuda.empty_cache()
+    step, init_all, _ = make_train_step(cfg, device="cuda")
+    single = _pipeline_run(step, init_all, tokens,
+                           torch.Generator("cuda").manual_seed(SEED + 5),
+                           profile=True)
+    single.pop("per_step")
+    del step, init_all, tokens
+    torch.cuda.empty_cache()
+
+    # the MoE: 1f1b's loss falls; its first step is gpipe's within the
+    # reference's budget between its schedules
+    mcfg = dataclasses.replace(tmoe.MoEConfig.small(),
+                               layers=PIPE_MOE_LAYERS)
+    mgen = torch.Generator("cuda").manual_seed(SEED + 9)
+    mtokens = torch.randint(0, mcfg.vocab_size, (MOE_BATCH, MOE_SEQ + 1),
+                            device="cuda", generator=mgen)
+    moe_runs = {}
+    for schedule in ("1f1b", "gpipe"):
+        step, init_all, _ = tpipe.make_moe_pipeline_train_step(
+            mcfg, None, PIPE_MOE_MICRO, schedule=schedule, device="cuda",
+            stages_in_process=PIPE_MOE_STAGES)
+        run = _pipeline_run(step, init_all, mtokens,
+                            torch.Generator("cuda").manual_seed(SEED + 9))
+        counts[f"moe_{schedule}"] = run.pop("per_step")[-1]
+        moe_runs[schedule] = run
+        del step, init_all
+        torch.cuda.empty_cache()
+    f1b, gp = moe_runs["1f1b"]["losses"], moe_runs["gpipe"]["losses"]
+    emit({"phase": "pipeline_virtual_moe", "preset": "moe-small",
+          "layers": PIPE_MOE_LAYERS, "stages": PIPE_MOE_STAGES,
+          "microbatches": PIPE_MOE_MICRO, "batch": MOE_BATCH,
+          "seq": MOE_SEQ, "runs": moe_runs,
+          "launches_per_step": {k: counts[f"moe_{k}"] for k in moe_runs},
+          "first_loss_gap": abs(f1b[0] - gp[0])})
+    check(all(math.isfinite(v) for v in f1b + gp), f"MoE losses {f1b} {gp}")
+    check(f1b[-1] < f1b[0], f"MoE 1f1b: the loss did not fall: {f1b}")
+    check(abs(f1b[0] - gp[0]) <= PIPE_MOE_SCHEDULE_TOL,
+          f"MoE 1f1b's first loss {f1b[0]} against gpipe's {gp[0]}")
+
+    emit({"phase": "pipeline_virtual_summary", "preset": "llama3-1b",
+          "layers": n, "stages": PIPE_STAGES, "microbatches": m,
+          "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+          "tol": {"loss_rel": PIPE_LOSS_REL,
+                  "grad_rel_norm_vs_microbatched": GRAD_REL,
+                  "grad_max_frac": GRAD_MAX_FRAC,
+                  "grad_rel_norm_vs_batch": TRAIN_GRAD_REL},
+          "single_device": single,
+          "step_s_vs_single": {
+              k: r["median_step_s"] / single["median_step_s"]
+              for k, r in runs.items()},
+          "peak_mem_gib": {**{k: r["peak_mem_gib"]
+                              for k, r in runs.items()},
+                           "single_device": single["peak_mem_gib"]},
+          "phase_s": time.perf_counter() - t_phase,
+          "meaning": "the stages run one after another in one process, so "
+                     "there is no bubble to see and no hop to pay; the gap "
+                     "to the single-device step is the cost of six "
+                     "microbatches (GEMMs at a sixth of the rows, the "
+                     "gradients summed per unit in f32) and of the "
+                     "executor"})
+    return counts
+
+
 def phase_table(name: str, launches: dict, train_launches: dict,
                 adam8: dict, moe_runs: dict, more_launches: dict,
                 ring_runs: dict, mesh_adam8: dict, virtual: dict):
@@ -3585,6 +3796,9 @@ def main(argv=None) -> int:
                       help="only the collectives at a world of one "
                            "(phase_collectives_world1, "
                            "phase_exec_bench_world1) in a fresh process")
+    args.add_argument("--pipeline", action="store_true",
+                      help="only build the kernels and run the pipeline "
+                           "over virtual stages (phase_pipeline_virtual)")
     args = args.parse_args(argv)
     name, smi = phase_device()
     if args.collectives:
@@ -3593,6 +3807,10 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     phase_build()
+    if args.pipeline:
+        phase_pipeline_virtual()
+        print(smi, flush=True)
+        return 0
     if args.adam8_leaves or args.remat_ffn:
         if args.adam8_leaves:
             phase_adam8_leaves(name)
@@ -3639,6 +3857,8 @@ def main(argv=None) -> int:
     more_launches["checkpoint_mesh_resumed_step"] = phase_checkpoint_mesh()
     more_launches["collectives_world1"] = phase_collectives_world1()
     more_launches["exec_bench_world1"] = phase_exec_bench_world1()
+    for run, counts in phase_pipeline_virtual().items():
+        more_launches[f"pipeline_virtual_{run}_step"] = counts
     phase_table(name, launches, train_launches, adam8, moe_runs,
                 more_launches, ring_runs, mesh_adam8, virtual)
     print(smi, flush=True)

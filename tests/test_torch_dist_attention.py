@@ -16,11 +16,15 @@ f32 and rounds once, so bf16 also allows 2e-2 relative (2.5 bf16 ulps).
 
 :func:`run_ranks` is the spawn helper of the port's multi-rank tests: the
 children import this module (not JAX) to find their target.
+:func:`free_port` and :func:`retry_on_taken_port` serve the tests that
+start ranks as a launcher does, on a TCP rendezvous port.
 """
 
 import datetime
 import os
 import queue
+import random
+import socket
 import time
 import traceback
 
@@ -29,6 +33,53 @@ import pytest
 import torch
 
 RANK_TIMEOUT_S = 120
+# the TCP store's error where its port is taken: errno 98, EADDRINUSE
+PORT_TAKEN = ("EADDRINUSE", "Address already in use",
+              "address already in use")
+
+
+def _ephemeral_low() -> int:
+    """The low end of the kernel's range for the local ports of outgoing
+    connections (32768 by Linux's default)."""
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+def free_port() -> int:
+    """A TCP port for a rendezvous, free when chosen and below the
+    kernel's ephemeral range.  A port from ``bind(0)`` lies in that range,
+    where the kernel also numbers the outgoing connections that every
+    gloo rank of a parallel test run opens: one of them can take the port
+    between its release here and the rank that binds it.  A random port
+    below the range is never handed out that way."""
+    low = _ephemeral_low()
+    rng = random.Random(time.monotonic_ns() ^ os.getpid())
+    for _ in range(200):
+        port = rng.randrange(10000, max(low, 10001))
+        with socket.socket() as s:
+            try:
+                s.bind(("127.0.0.1", port))
+            except OSError:
+                continue
+        return port
+    raise RuntimeError(f"no free TCP port found in [10000, {low})")
+
+
+def retry_on_taken_port(launch, attempts: int = 3):
+    """``launch(attempt)`` (which picks its own :func:`free_port`),
+    called again where it failed because its rendezvous port was taken
+    when a rank bound it (another test may bind the same free port in the
+    meantime): any other failure, and the last attempt's, propagate."""
+    for attempt in range(attempts):
+        try:
+            return launch(attempt)
+        except AssertionError as e:
+            if attempt == attempts - 1 or not any(
+                    word in str(e) for word in PORT_TAKEN):
+                raise
 
 
 def _rank_entry(fn, rank, world, store, results, args):

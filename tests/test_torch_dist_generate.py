@@ -15,7 +15,6 @@ combinations the port does not shard yet exit by name.
 import dataclasses
 import json
 import os
-import socket
 import subprocess
 import sys
 from argparse import Namespace
@@ -25,7 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_dist_attention import run_ranks
+from test_torch_dist_attention import (free_port, retry_on_taken_port,
+                                       run_ranks)
 
 ROOT = Path(__file__).resolve().parents[1]
 # name -> (mesh axes over 4 ranks, KV-cache dtype)
@@ -107,19 +107,17 @@ def test_mesh_generate_gives_the_reference_greedy_tokens(
     np.testing.assert_array_equal(got, ref)
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _launch_two_ranks(flags):
     """``workload train`` with ``flags`` on 2 processes started as a
     launcher starts them: each rank's JSON line."""
+    return retry_on_taken_port(lambda _: _launch_once(flags))
+
+
+def _launch_once(flags):
     argv = [sys.executable, "-m", "tpu_network_operator_torch.workload",
             "train", "--device", "cpu", "--preset", "tiny", *flags,
             "--steps", "2", "--batch", "4", "--seq-len", "32"]
-    port = str(_free_port())
+    port = str(free_port())
     procs = []
     for rank in range(2):
         env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank),
@@ -169,34 +167,45 @@ def test_workload_train_moe_over_expert_on_two_launched_ranks():
     assert lines[0]["first_loss"] == lines[1]["first_loss"]
 
 
-# The ids are stable names.  Case 0 is the one refusal left; cases 1 to 4
-# pinned refusals that the mesh's 8-bit AdamW and sharded checkpoints
-# removed, so each now holds that its combination runs on a mesh and still
-# exits with --pipe 2.
-@pytest.mark.parametrize("flags,named", [
-    pytest.param(dict(pipe=2), "--pipe > 1", id="flags0---pipe > 1"),
-    pytest.param(dict(expert=2, model="moe", optimizer="adam8bit"), None,
+# The ids are stable names.  Case 0 pinned the refusal of --pipe > 1 on a
+# mesh, which the pipeline schedules removed; cases 1 to 4 pinned refusals
+# that the mesh's 8-bit AdamW and sharded checkpoints removed.  So each now
+# holds that its combination, and it with --pipe 2 under each schedule,
+# passes cmd_train's checks of the flags.
+@pytest.mark.parametrize("flags", [
+    pytest.param(dict(pipe=2), id="flags0---pipe > 1"),
+    pytest.param(dict(expert=2, model="moe", optimizer="adam8bit"),
                  id="flags1---expert > 1, --model moe"),
-    pytest.param(dict(model="moe", checkpoint_dir="ckpt"), None,
+    pytest.param(dict(model="moe", checkpoint_dir="ckpt"),
                  id="flags2---model moe"),
-    pytest.param(dict(optimizer="adam8bit"), None,
+    pytest.param(dict(optimizer="adam8bit"),
                  id="flags3---optimizer adam8bit"),
-    pytest.param(dict(checkpoint_dir="ckpt"), None,
-                 id="flags4---checkpoint-dir"),
+    pytest.param(dict(checkpoint_dir="ckpt"), id="flags4---checkpoint-dir"),
 ])
-def test_train_refuses_what_this_slice_does_not_shard(flags, named):
+def test_train_refuses_what_this_slice_does_not_shard(flags):
     from tpu_network_operator_torch.workload import train
 
-    args = Namespace(**{**dict(pipe=1, expert=1, model="llama",
-                               optimizer="adamw", checkpoint_dir=None),
+    args = Namespace(**{**dict(pipe=1, expert=1, seq=1, model="llama",
+                               optimizer="adamw", checkpoint_dir=None,
+                               sp_impl="ring", pp_schedule="gpipe",
+                               virtual_stages=2),
                         **flags})
-    if named is None:
-        train._refuse_on_mesh(args)          # runs on a mesh now
-        args.pipe = 2
-    with pytest.raises(SystemExit, match="--pipe > 1 on a mesh of more than "
-                                         "one process: not in the port yet "
-                                         r"\(ROADMAP.md, queue 1 item 3\)"):
-        train._refuse_on_mesh(args)
+    train.check_train_flags(args)
+    for schedule in ("gpipe", "1f1b", "interleaved"):
+        args.pipe, args.seq, args.pp_schedule = 2, 2, schedule
+        train.check_train_flags(args)        # runs on a mesh now
+    # what is still refused: Ulysses inside the pipeline, a schedule the
+    # reference does not know, interleaving without chunks
+    args.sp_impl = "ulysses"
+    with pytest.raises(SystemExit, match="ulysses cannot nest"):
+        train.check_train_flags(args)
+    args.sp_impl = "ring"
+    args.pp_schedule = "zigzag"
+    with pytest.raises(ValueError, match="unknown pipeline schedule"):
+        train.check_train_flags(args)
+    args.pp_schedule, args.virtual_stages = "interleaved", 1
+    with pytest.raises(ValueError, match="virtual_stages >= 2"):
+        train.check_train_flags(args)
 
 
 def test_reference_refusals_come_first():

@@ -14,14 +14,14 @@ import io
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
 
 import numpy as np
 import pytest
 
-from test_torch_dist_attention import run_ranks
+from test_torch_dist_attention import (free_port, retry_on_taken_port,
+                                       run_ranks)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # the first train step after convert: a fixed synthetic batch
@@ -39,18 +39,16 @@ def _main(argv) -> dict:
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _bootstrap_world(path, argv) -> list:
     """``workload`` ``argv`` on 2 processes of one host from the bootstrap
     file ``path`` (the agent's schema: one process entry, 2 chips, so
     ``LOCAL_RANK`` picks the rank): each rank's JSON line."""
+    return retry_on_taken_port(lambda _: _bootstrap_once(path, argv))
+
+
+def _bootstrap_once(path, argv) -> list:
     path.write_text(json.dumps({
-        "version": 1, "coordinator_address": f"127.0.0.1:{_free_port()}",
+        "version": 1, "coordinator_address": f"127.0.0.1:{free_port()}",
         "num_processes": 1, "process_id": 0,
         "topology": {"num_chips": 2, "chips_per_host": 2, "num_slices": 1},
     }))

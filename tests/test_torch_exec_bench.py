@@ -13,21 +13,16 @@ The port runs one process per device: a node's bootstrap file is read by
 import hashlib
 import json
 import os
-import socket
 import subprocess
 import sys
 
 import pytest
 
+from test_torch_dist_attention import free_port, retry_on_taken_port
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 LAUNCHER = os.path.join(ROOT, "tools", "exec_bench_torch.py")
 TIMINGS = ("planned_s", "ring_s", "hierarchical_s", "naive_s")
-
-
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _toy_plan(n, scenario="uniform"):
@@ -59,7 +54,7 @@ def _write_planned_bootstraps(tmp_path, n, devices, plan, nodes):
                                                           write_bootstrap)
     from tpu_network_operator.agent.tpu.topology import TpuTopology
 
-    port = _free_port()
+    port = free_port()
     out = []
     for pid in range(n):
         topo = TpuTopology(
@@ -123,9 +118,15 @@ def test_exec_bench_workers_execute_the_plan(tmp_path, devices):
     ring's).  Several ranks share a node's file and job lock; none fails
     on it, and the lock is gone once all have exited."""
     nodes, plan = _toy_plan(2, "uniform")
-    pairs = _write_planned_bootstraps(tmp_path, 2, devices, plan, nodes)
-    lines = _run_workers(pairs, devices, ["--sizes-mb", "0.25", "--iters",
-                                          "1"])
+
+    def launch(attempt):
+        where = tmp_path / f"attempt{attempt}"
+        where.mkdir()
+        pairs = _write_planned_bootstraps(where, 2, devices, plan, nodes)
+        return pairs, _run_workers(pairs, devices, ["--sizes-mb", "0.25",
+                                                    "--iters", "1"])
+
+    pairs, lines = retry_on_taken_port(launch)
     payload = plan.to_payload()
     world = 2 * devices
     assert len(lines) == world

@@ -1066,3 +1066,36 @@ def test_collectives_on_a_world1_nccl_group_are_identities(cuda, tmp_path):
         assert torch.equal(comm.all_gather(x, g, 2), x)
     finally:
         dist.destroy_process_group()
+
+
+def test_pipeline_in_process_repeats_its_loss_bits(cuda):
+    """A 2-layer Llama at head_dim 64 (flash) through the pipeline's
+    executor over 2 stages in one process, 1f1b with 4 microbatches: a
+    repeat gives the same loss and gradient bits (the flash backward and
+    RMSNorm backward kernels are deterministic and the schedule's order
+    is fixed), and every flash and RMSNorm kernel of the path launched."""
+    from tpu_network_operator_torch.models import training
+    from tpu_network_operator_torch.parallel import pipeline as tpipe
+
+    cfg = dataclasses.replace(tllama.LlamaConfig.tiny(), hidden=256,
+                              heads=4, kv_heads=2, ffn=512, layers=2,
+                              remat=True, remat_policy="full")
+    step, init_all, _ = tpipe.make_pipeline_train_step(
+        cfg, None, 4, schedule="1f1b", device="cuda", stages_in_process=2)
+    params, _ = init_all(cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 257), device="cuda",
+                           generator=cuda)
+    _kernels.reset_launches()
+    runs = [step.grads_fn(params, tokens) for _ in range(2)]
+    per_run = {k: v // 2 for k, v in _kernels.LAUNCHES.items()}
+    (loss0, g0), (loss1, g1) = runs
+    assert torch.equal(loss0, loss1)
+    for a, b in zip(training.tree_leaves(g0), training.tree_leaves(g1)):
+        assert torch.equal(a, b)
+    # per microbatch and layer: flash forward twice (full remat replays
+    # it), its two backward kernels once; RMSNorm as the plain step
+    n, m = cfg.layers, 4
+    assert per_run["flash_fwd"] == 2 * n * m
+    assert per_run["flash_bwd_dq"] == per_run["flash_bwd_dkv"] == n * m
+    assert per_run["rms_norm_fwd"] == (4 * n + 1) * m
+    assert per_run["rms_norm_bwd"] == (2 * n + 1) * m

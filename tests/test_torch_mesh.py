@@ -22,6 +22,8 @@ from tpu_network_operator.parallel import mesh as jmesh
 from tpu_network_operator_torch import bootstrap as tboot
 from tpu_network_operator_torch.parallel import mesh as tmesh
 
+from test_torch_dist_attention import free_port, retry_on_taken_port
+
 ROOT = Path(__file__).resolve().parents[1]
 
 PLANS = [
@@ -195,10 +197,15 @@ def test_job_lock_is_what_the_agent_drain_waits_for(tmp_path):
 def test_bootstrap_starts_a_gloo_group_and_an_all_ones_mesh(tmp_path):
     path = _write(tmp_path, None, num_chips=1, num_processes=1, process_id=0)
     d = json.loads(Path(path).read_text())
-    with __import__("socket").socket() as s:
-        s.bind(("127.0.0.1", 0))
-        d["coordinator_address"] = f"127.0.0.1:{s.getsockname()[1]}"
-    Path(path).write_text(json.dumps(d))
+
+    def launch(_):
+        d["coordinator_address"] = f"127.0.0.1:{free_port()}"
+        Path(path).write_text(json.dumps(d))
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 0, out.stderr
+        return out
+
     code = (
         "import json, os, sys\n"
         "from argparse import Namespace\n"
@@ -213,9 +220,7 @@ def test_bootstrap_starts_a_gloo_group_and_an_all_ones_mesh(tmp_path):
         "                  mesh.shape, str(mesh.device), held]))\n"
         "dist.destroy_process_group()\n"
     )
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
-    assert out.returncode == 0, out.stderr
+    out = retry_on_taken_port(launch)
     backend, world, shape, device, held = json.loads(
         out.stdout.strip().splitlines()[-1])
     assert (backend, world, device, held) == ("gloo", 1, "cpu", True)
@@ -261,11 +266,20 @@ def test_heads_that_do_not_divide_tensor_are_refused_where_the_reference_runs():
 def test_training_over_pipe_is_refused_by_name():
     """The dense layout names no pipe axis, as the reference's specs name
     none: serving replicates over it (``test_torch_dist_generate.py``),
-    and training over it, the pipeline schedules, is a later slice that
-    the layout refuses by name rather than running replicas."""
+    and training over it runs through the pipeline's builders, whose
+    stages hold a layout of their pipe coordinate.  The plain train
+    step's layout refuses a pipe axis by name, naming the builder, rather
+    than running replicas."""
     from tpu_network_operator_torch.models import llama as tllama
+    from tpu_network_operator_torch.models import moe as tmoe
 
     pipe = tmesh.MeshCoord(tmesh.plan_axes(2, pipe=2), {"pipe": 1})
-    with pytest.raises(ValueError, match=r"training over a 'pipe' axis is "
-                                         r"not in this port yet"):
+    with pytest.raises(ValueError, match=r"training over a 'pipe' axis runs "
+                                         r"through parallel\.pipeline\."
+                                         r"make_pipeline_train_step"):
         tllama.Layout(tllama.LlamaConfig.tiny(), pipe)
+    with pytest.raises(ValueError, match="make_moe_pipeline_train_step"):
+        tmoe.Layout(tmoe.MoEConfig.tiny(), pipe)
+    # a pipeline stage's layout, and serving's, take the axis
+    for kw in (dict(pipeline_stage=True), dict(serving=True)):
+        assert tllama.Layout(tllama.LlamaConfig.tiny(), pipe, **kw).heads == 4

@@ -135,33 +135,39 @@ def local_batches(
     start_step: int = 0,
     process_index: int = 0,
     process_count: int = 1,
+    microbatches: int = 1,
 ) -> Iterator[np.ndarray]:
     """Yields this process's shard of each global batch:
     ``[batch/process_count, seq_len+1]`` int32, forever.
 
     Deterministic in (cfg, step): every process computes the same global
     offsets and slices its own contiguous row range, so shards are
-    disjoint and the union is the global batch.
+    disjoint and the union is the global batch.  With ``microbatches``
+    M > 1 (the pipeline's), the batch is M contiguous microbatches and the
+    process takes its contiguous share of each, microbatch after
+    microbatch.
     """
     # validate at construction, not first next(): config errors should
     # point at the call site, before model init has run
-    if cfg.batch % process_count:
+    if cfg.batch % (process_count * microbatches):
         raise ValueError(
             f"global batch {cfg.batch} not divisible by "
-            f"process_count {process_count}"
+            f"process_count {process_count} x microbatches {microbatches}"
         )
     span = cfg.seq_len + 1
     if len(source) - span < 0:
         raise ValueError(
             f"dataset of {len(source)} tokens shorter than seq_len+1={span}"
         )
-    per = cfg.batch // process_count
-    lo = process_index * per
+    per = cfg.batch // (process_count * microbatches)
+    rows = np.concatenate([
+        np.arange(per) + m * (cfg.batch // microbatches) + process_index * per
+        for m in range(microbatches)])
 
     def gen():
         step = start_step
         while True:
-            starts = _batch_positions(len(source), cfg, step)[lo:lo + per]
+            starts = _batch_positions(len(source), cfg, step)[rows]
             yield np.stack([source.window(int(s), span) for s in starts])
             step += 1
 
@@ -177,6 +183,7 @@ def device_batches(
     prefetch: int = 1,
     process_index: int = 0,
     process_count: int = 1,
+    microbatches: int = 1,
 ) -> Iterator[torch.Tensor]:
     """Yields the batches of :func:`local_batches` (this process's rows,
     ``[batch/process_count, seq_len+1]``) as int32 tensors on ``device``
@@ -190,7 +197,8 @@ def device_batches(
     dev = resolve_device(device)
     it = local_batches(source, cfg, start_step=start_step,  # validates now
                        process_index=process_index,
-                       process_count=process_count)
+                       process_count=process_count,
+                       microbatches=microbatches)
 
     def put(local: np.ndarray) -> torch.Tensor:
         host = torch.from_numpy(local)
@@ -216,13 +224,16 @@ def sharded_batches(
     *,
     start_step: int = 0,
     prefetch: int = 1,
+    microbatches: int = 1,
 ) -> Iterator[torch.Tensor]:
     """This rank's rows of each global batch on its device: the batch is
     sharded over data x fsdp (the reference's ``P(("data", "fsdp"),
     None)``), so the rank's coordinate there is its ``process_index`` in
     :func:`local_batches`, and every rank of one batch shard (along
-    ``seq``, ``tensor`` and ``pipe``) draws the same rows."""
+    ``seq``, ``tensor`` and ``pipe``) draws the same rows.  The
+    pipeline's ``microbatches``: the rank's share of each microbatch
+    (``parallel.pipeline.microbatch_rows``)."""
     return device_batches(
         source, cfg, mesh.device, start_step=start_step, prefetch=prefetch,
         process_index=mesh.index("data", "fsdp"),
-        process_count=mesh.size("data", "fsdp"))
+        process_count=mesh.size("data", "fsdp"), microbatches=microbatches)

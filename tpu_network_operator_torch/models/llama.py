@@ -306,12 +306,18 @@ class Layout:
     (``cfg.seq_parallel`` False), or keeps its chunk of the sequence
     through the layer (True); without ``attn_fn`` attention runs on the
     whole local sequence, as the reference's mesh attention does outside
-    the ring.  The dense model names no ``expert`` axis, so its ranks
-    replicate; ``pipe`` replicates when ``serving`` (the reference's
-    generate shards by the same specs), and training over it is a later
-    slice.  The MoE's layout (``models/moe.py``) adds the experts."""
+    the ring.  ``seq_parallel`` (None: ``cfg.seq_parallel``) picks
+    between the two.  The dense model names no ``expert`` axis, so its
+    ranks replicate; ``pipe`` replicates when ``serving`` (the reference's
+    generate shards by the same specs).  Training over ``pipe`` runs
+    through :mod:`..parallel.pipeline`, whose stages each hold a layout
+    with ``pipeline_stage`` (the sub-mesh of one pipe coordinate: every
+    group here joins ranks that share it); the plain train step refuses a
+    pipe axis.  The MoE's layout (``models/moe.py``) adds the experts."""
 
-    def __init__(self, cfg, mesh=None, attn_fn=None, serving: bool = False):
+    def __init__(self, cfg, mesh=None, attn_fn=None, serving: bool = False,
+                 pipeline_stage: bool = False,
+                 seq_parallel: Optional[bool] = None):
         self.cfg, self.mesh = cfg, mesh
         self.attn = attn_fn or functools.partial(attention, cfg)
         if mesh is None:
@@ -320,10 +326,12 @@ class Layout:
             self.seq_shards, self.seq_index, self.seq_split = 1, 0, False
             self.batch_axes, self.loss_scale = (), 1.0
             return
-        if mesh.size("pipe") > 1 and not serving:
+        if mesh.size("pipe") > 1 and not (serving or pipeline_stage):
             raise ValueError(
-                f"training over a 'pipe' axis is not in this port yet "
-                f"(ROADMAP.md, queue 1 item 3e); got {mesh.shape}"
+                f"training over a 'pipe' axis runs through "
+                f"parallel.pipeline.make_pipeline_train_step (or "
+                f"make_moe_pipeline_train_step), not the plain train step; "
+                f"got {mesh.shape}"
             )
         t, n = mesh.size("tensor"), mesh.size("seq")
         if cfg.heads % t or cfg.ffn % t:
@@ -340,7 +348,9 @@ class Layout:
         self.kv_rep = 1 if cfg.kv_heads % t == 0 else _gqa_repeat_factor(
             cfg.heads, cfg.kv_heads, t)
         self.kv_heads = cfg.kv_heads * self.kv_rep // t
-        sp = getattr(cfg, "seq_parallel", False) and n > 1
+        if seq_parallel is None:
+            seq_parallel = getattr(cfg, "seq_parallel", False)
+        sp = seq_parallel and n > 1
         if sp and attn_fn is None:
             self.attn = make_ring_attn_fn(mesh)
         self.seq_split = n > 1 and attn_fn is not None and not sp

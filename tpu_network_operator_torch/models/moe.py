@@ -247,12 +247,16 @@ class Layout(llama.Layout):
     sums the load-balancing statistics.  ``expert`` is no batch axis: the
     ranks along it hold the same rows and the same replicated leaves, so
     no gradient is summed over it.  The MoE keeps the whole sequence
-    outside attention (no ``seq_parallel``): a routing group is a whole
-    batch row, under ring and Ulysses as without them."""
+    outside attention (the config has no ``seq_parallel``): a routing
+    group is a whole batch row, under ring and Ulysses as without them.
+    A pipeline stage (the dense layout's ``pipeline_stage`` and
+    ``seq_parallel``) keeps each seq rank's chunk through the layer
+    instead, and routes each (row, chunk) as a group of its own, as the
+    reference's pipeline does."""
 
-    def __init__(self, cfg: MoEConfig, mesh=None, attn_fn=None):
+    def __init__(self, cfg: MoEConfig, mesh=None, attn_fn=None, **kw):
         self.experts = expert_range(cfg, mesh)
-        super().__init__(cfg, mesh, attn_fn)
+        super().__init__(cfg, mesh, attn_fn, **kw)
         if mesh is None:
             self.et = self.batch = None
             self.batch_shards = 1

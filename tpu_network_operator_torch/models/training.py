@@ -392,6 +392,18 @@ def adamw(lr: float = 3e-4, weight_decay: float = 0.1, **kw) -> AdamW:
 # -- train step ---------------------------------------------------------------
 
 
+def resolve_optimizer(optimizer, mesh=None, param_specs=None):
+    """The optimizer object a train step takes: ``"adam8bit"`` is
+    ``adamw8bit()`` with the library defaults, on ``mesh`` with
+    ``param_specs`` (as the reference's ``make_sharded_train_step`` wires
+    it); None is ``adamw(3e-4, weight_decay=0.1)``; an object as it is."""
+    if optimizer == "adam8bit":
+        from .optim8bit import adamw8bit
+
+        return adamw8bit(mesh=mesh, param_specs=param_specs)
+    return optimizer or adamw(3e-4, weight_decay=0.1)
+
+
 def make_train_step(
     loss_fn: Callable,             # (params, tokens) -> scalar loss
     init_fn: Callable,             # generator -> params
@@ -417,11 +429,7 @@ def make_train_step(
     the update, and
     ``reduce_loss`` sums the returned loss over the ranks that split the
     batch; both are None on one device."""
-    if optimizer == "adam8bit":
-        from .optim8bit import adamw8bit
-
-        optimizer = adamw8bit(mesh=mesh, param_specs=param_specs)
-    optimizer = optimizer or adamw(3e-4, weight_decay=0.1)
+    optimizer = resolve_optimizer(optimizer, mesh, param_specs)
 
     def step(params, opt_state, tokens):
         leaves = list(tree_leaves(params))

@@ -1,11 +1,12 @@
 """Multi-GPU layouts of the port: the job mesh over torch.distributed
 ranks (one GPU per rank), the collectives of the sharded model, sequence
-parallelism (ring and Ulysses attention), and the collectives sweep with
-the planned DCN all-reduce (``collectives.py``) that measure the network.
+parallelism (ring and Ulysses attention), pipeline parallelism (the
+GPipe, 1F1B and interleaved schedules, ``pipeline.py``), and the
+collectives sweep with the planned DCN all-reduce (``collectives.py``)
+that measure the network.
 
 Counterpart of ``tpu_network_operator/parallel/``.  Expert parallelism
-lives in the MoE model (``models/moe.py``); the pipeline schedules are a
-later slice (ROADMAP.md, queue 1 item 3).
+lives in the MoE model (``models/moe.py``).
 """
 
 from .collectives import (  # noqa: F401
@@ -37,4 +38,9 @@ from .mesh import (  # noqa: F401
     planned_axis_order,
     planned_ring_index,
     validate_axis_order,
+)
+
+from .pipeline import (  # noqa: F401
+    make_moe_pipeline_train_step,
+    make_pipeline_train_step,
 )

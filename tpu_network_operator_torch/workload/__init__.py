@@ -23,9 +23,10 @@ with fsdp taking the rest), with random weights:
   DCN all-reduce timed against ring, hierarchical and name-order axes
   (``--bootstrap`` required; ``tools/exec_bench_torch.py`` launches it).
 
-``--profile DIR`` writes a ``torch.profiler`` Chrome trace of the timed
-region.  Pipeline parallelism (``train --pipe`` on more than one process)
-comes with a later slice.
+``train --pipe N`` runs pipeline stages over N ranks (``--pp-schedule``
+gpipe, 1f1b or interleaved with ``--virtual-stages``, ``--microbatches``;
+with ``--seq``, ring attention inside each stage).  ``--profile DIR``
+writes a ``torch.profiler`` Chrome trace of the timed region.
 """
 
 from .cli import build_parser, main

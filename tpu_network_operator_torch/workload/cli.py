@@ -5,7 +5,7 @@ from __future__ import annotations
 import argparse
 
 from .collectives import cmd_collectives
-from .common import LLAMA_PRESET_NAMES
+from .common import LLAMA_PRESET_NAMES, finish_subcommand
 from .execbench import cmd_exec_bench
 from .generate import cmd_generate
 from .train import cmd_convert, cmd_train
@@ -89,13 +89,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "(K/V chunks travel round the ring) or ulysses "
                         "(all-to-alls between sequence and heads)")
     t.add_argument("--microbatches", type=int, default=4,
-                   help="pipeline microbatches (--pipe > 1: a later slice)")
+                   help="pipeline microbatches (--pipe > 1); each rank "
+                        "takes its data x fsdp share of every microbatch")
     t.add_argument("--pp-schedule", default="gpipe",
                    choices=["gpipe", "1f1b", "interleaved"],
-                   help="pipeline schedule (--pipe > 1: a later slice)")
+                   help="pipeline schedule (--pipe > 1): gpipe (all "
+                        "forwards, then all backwards), 1f1b (one forward, "
+                        "one backward), interleaved (1f1b over "
+                        "--virtual-stages layer chunks a stage)")
     t.add_argument("--virtual-stages", type=int, default=2,
                    help="layer chunks per device for --pp-schedule="
-                        "interleaved (a later slice)")
+                        "interleaved (>= 2; layers stored [v, L/v, ...])")
     t.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="memmapped token file (uint16/uint32); default: "
                         "synthetic fixed batch")
@@ -149,4 +153,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    rc = args.fn(args)
+    finish_subcommand()
+    return rc

@@ -16,10 +16,6 @@ import torch.distributed as dist
 
 from .. import resolve_device
 
-# where the combinations this slice does not shard are listed
-LATER_SLICE = "ROADMAP.md, queue 1 item 3"
-
-
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
@@ -94,6 +90,32 @@ def maybe_profile(directory: Optional[str], name: str,
     log(f"profile of {name} written to {path}")
 
 
+# set by the CLI's main when a subcommand returned: the group this process
+# started is then torn down at exit, every rank through one barrier
+_RETURNED = {"ok": False}
+
+
+def finish_subcommand() -> None:
+    """Mark the subcommand as returned (the CLI's ``main`` calls it)."""
+    _RETURNED["ok"] = True
+
+
+def _teardown_group() -> None:
+    """At exit, the process group :func:`init_distributed` started, if it
+    is still up: after a returned subcommand, a barrier (rank 0 serves the
+    TCP store the others' groups read, so it waits for them) and then
+    ``destroy_process_group``, while Python can still join the groups'
+    threads.  A group left to the interpreter's teardown can abort the
+    process ("terminate called without an active exception") after its
+    work is done.  After a failure, no barrier: a peer may never reach it.
+    """
+    if not dist.is_initialized():
+        return
+    if _RETURNED["ok"]:
+        dist.barrier()
+    dist.destroy_process_group()
+
+
 def init_distributed(bootstrap_path: Optional[str], device) -> Tuple:
     """(bootstrap config or None, this process's device), after starting
     the process group where there is one: from the agent's bootstrap file
@@ -102,7 +124,8 @@ def init_distributed(bootstrap_path: Optional[str], device) -> Tuple:
     (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` /
     ``MASTER_PORT``, as torchrun sets them), one process per GPU.  Neither:
     one process, no group.  The backend follows ``device``: NCCL for
-    CUDA, gloo for the CPU."""
+    CUDA, gloo for the CPU.  A group started here is torn down at exit
+    (:func:`_teardown_group`)."""
     from ..bootstrap import acquire_job_lock, read_bootstrap
     from ..parallel.mesh import BACKENDS, DEFAULT_TIMEOUT, init_process_group
 
@@ -112,6 +135,8 @@ def init_distributed(bootstrap_path: Optional[str], device) -> Tuple:
         cfg = read_bootstrap(bootstrap_path)
         lock = acquire_job_lock(bootstrap_path)
         atexit.register(lock.release)
+        # registered after the lock: atexit runs it first
+        atexit.register(_teardown_group)
         dev = init_process_group(
             cfg, dev, local_rank=local_rank,
             local_world=int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
@@ -126,6 +151,7 @@ def init_distributed(bootstrap_path: Optional[str], device) -> Tuple:
         torch.cuda.set_device(dev)
     dist.init_process_group(BACKENDS[dev.type], init_method="env://",
                             timeout=DEFAULT_TIMEOUT)
+    atexit.register(_teardown_group)
     return None, dev
 
 
@@ -144,18 +170,32 @@ def build_mesh(args, bootstrap, device):
     return make_mesh(plan_axes(dist.get_world_size(), **kw), device)
 
 
-def mesh_report(mesh, device) -> dict:
-    """The JSON line's ``mesh``: the axis sizes, the world and the device."""
+def mesh_report(mesh, device, pipeline=None) -> dict:
+    """The JSON line's ``mesh``: the axis sizes, the world and the device;
+    with a ``pipeline`` step (``parallel.pipeline.PipelineStep``) also its
+    schedule, microbatches and layer chunks a stage."""
     if mesh is None:
         return {"devices": 1, "device": str(device)}
-    return {**mesh.shape, "devices": mesh.plan.size(),
-            "device": str(device)}
+    report = {**mesh.shape, "devices": mesh.plan.size(),
+              "device": str(device)}
+    if pipeline is not None:
+        report.update(pp_schedule=pipeline.schedule,
+                      microbatches=pipeline.M,
+                      virtual_stages=pipeline.v)
+    return report
 
 
-def batch_rows(tokens: torch.Tensor, mesh) -> torch.Tensor:
-    """This rank's rows of a global batch: its shard along data x fsdp."""
+def batch_rows(tokens: torch.Tensor, mesh,
+               microbatches: int = 1) -> torch.Tensor:
+    """This rank's rows of a global batch: its shard along data x fsdp,
+    and under the pipeline's ``microbatches`` its share of each
+    (``parallel.pipeline.microbatch_rows``)."""
     if mesh is None:
         return tokens
+    if microbatches > 1:
+        from ..parallel.pipeline import microbatch_rows
+
+        return microbatch_rows(tokens, mesh, microbatches)
     n = mesh.size("data", "fsdp")
     if tokens.shape[0] % n:
         raise SystemExit(

@@ -1,9 +1,10 @@
 """``workload train`` / ``workload convert``: training throughput on one
 device or over a mesh (dense Llama, and the MoE with its experts over
-``--expert``), with AdamW or the 8-bit AdamW, resumable checkpoints
-(``--checkpoint-dir``, sharded on a mesh, restorable onto another mesh
-shape) and a token file (``--data``), and HF-checkpoint import, onto a
-mesh too."""
+``--expert``; pipeline stages over ``--pipe`` with ``--pp-schedule``
+gpipe, 1f1b or interleaved), with AdamW or the 8-bit AdamW, resumable
+checkpoints (``--checkpoint-dir``, sharded on a mesh, restorable onto
+another mesh shape) and a token file (``--data``), and HF-checkpoint
+import, onto a mesh too."""
 
 from __future__ import annotations
 
@@ -12,9 +13,9 @@ import time
 
 import torch
 
-from .common import (LATER_SLICE, batch_rows, build_mesh, emit,
-                     init_distributed, llama_presets, log, maybe_profile,
-                     mesh_report, moe_presets, pick_preset, sync)
+from .common import (batch_rows, build_mesh, emit, init_distributed,
+                     llama_presets, log, maybe_profile, mesh_report,
+                     moe_presets, pick_preset, sync)
 
 
 def _train_step_factory(family: str):
@@ -25,25 +26,46 @@ def _train_step_factory(family: str):
     return make_train_step
 
 
-def _refuse_on_mesh(args) -> None:
-    """What a mesh of more than one process does not run yet: it exits
-    by name and does not fall back."""
-    if args.pipe > 1:
+def check_train_flags(args) -> None:
+    """The reference's refusals of ``train``'s flags, before any process
+    group starts: an axis the model would not use, Ulysses inside the
+    pipeline, and a pipeline schedule it does not know."""
+    if args.model != "moe" and args.expert > 1:
+        raise SystemExit("--expert requires --model moe")
+    if args.pipe > 1 and args.seq > 1 and args.sp_impl == "ulysses":
         raise SystemExit(
-            f"--pipe > 1 on a mesh of more than one process: not in the "
-            f"port yet ({LATER_SLICE}): the pipeline schedules are item 3e"
+            "--sp-impl ulysses cannot nest inside the pipeline region; "
+            "use --sp-impl ring with --pipe"
         )
+    if args.pipe > 1:
+        from ..parallel.pipeline import _parse_schedule
+
+        _parse_schedule(args.pp_schedule, args.virtual_stages)
 
 
-def _checkpointer(args, cfg, mesh, params, optimizer):
+def _pipeline_step(args, cfg, mesh, optimizer, device):
+    """The pipeline's (step, init_all, optimizer) over ``--pipe``."""
+    from ..parallel.pipeline import (make_moe_pipeline_train_step,
+                                     make_pipeline_train_step)
+
+    make = (make_moe_pipeline_train_step if args.model == "moe"
+            else make_pipeline_train_step)
+    return make(cfg, mesh, n_microbatches=args.microbatches,
+                optimizer=optimizer,
+                seq_axis="seq" if args.seq > 1 else None,
+                schedule=args.pp_schedule,
+                virtual_stages=args.virtual_stages, device=device)
+
+
+def _checkpointer(args, cfg, mesh, params, optimizer, specs=None):
     """The run's :class:`..models.checkpoint.TrainCheckpointer`: on a mesh,
-    sharded by the family's specs and the optimizer's state specs."""
+    sharded by ``specs`` (default: the family's) and the optimizer's
+    state specs."""
     from ..models.checkpoint import TrainCheckpointer
     from ..models.convert import param_specs
 
-    specs = None
     if mesh is not None:
-        specs = param_specs(cfg)
+        specs = specs or param_specs(cfg)
         specs = (specs, optimizer.state_specs(params, specs))
     return TrainCheckpointer(args.checkpoint_dir, mesh=mesh, specs=specs,
                              max_to_keep=getattr(args, "keep_checkpoints",
@@ -64,18 +86,9 @@ def _sp_attn_fn(args, mesh):
 
 
 def cmd_train(args) -> int:
-    # the reference's refusals: an axis the model would not use
-    if args.model != "moe" and args.expert > 1:
-        raise SystemExit("--expert requires --model moe")
-    if args.pipe > 1 and args.seq > 1 and args.sp_impl == "ulysses":
-        raise SystemExit(
-            "--sp-impl ulysses cannot nest inside the pipeline region; "
-            "use --sp-impl ring with --pipe"
-        )
+    check_train_flags(args)
     bootstrap, device = init_distributed(args.bootstrap, args.device)
     mesh = build_mesh(args, bootstrap, device)
-    if mesh is not None and mesh.plan.size() > 1:
-        _refuse_on_mesh(args)
     # an imported checkpoint (workload convert) carries its own geometry,
     # family and rope scaling included, which beats --model / --preset
     sidecar_cfg = None
@@ -91,15 +104,23 @@ def cmd_train(args) -> int:
     presets = moe_presets() if args.model == "moe" else llama_presets()
     cfg = sidecar_cfg or pick_preset(presets, args.preset, args.model)
     optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
-    step, init_all, opt = _train_step_factory(args.model)(
-        cfg, optimizer=optimizer, device=device, mesh=mesh,
-        attn_fn=_sp_attn_fn(args, mesh))
+    # the pipeline's microbatches (1: the plain step): each rank takes
+    # its share of every microbatch's rows
+    micro, specs = 1, None
+    if args.pipe > 1:
+        step, init_all, opt = _pipeline_step(args, cfg, mesh, optimizer,
+                                             device)
+        micro, specs = args.microbatches, step.specs
+    else:
+        step, init_all, opt = _train_step_factory(args.model)(
+            cfg, optimizer=optimizer, device=device, mesh=mesh,
+            attn_fn=_sp_attn_fn(args, mesh))
     params, opt_state = init_all(torch.Generator(device).manual_seed(0))
 
     start_step = 0
     ckpt = None
     if args.checkpoint_dir:
-        ckpt = _checkpointer(args, cfg, mesh, params, opt)
+        ckpt = _checkpointer(args, cfg, mesh, params, opt, specs)
         if ckpt.latest_step() is not None:
             # loaded in place into the fresh init: one copy of the state
             start_step, params, opt_state = ckpt.restore((params, opt_state))
@@ -115,7 +136,8 @@ def cmd_train(args) -> int:
         dcfg = DataConfig(batch=args.batch, seq_len=args.seq_len)
         data_it = (device_batches(source, dcfg, device, start_step=start_step)
                    if mesh is None else
-                   sharded_batches(source, dcfg, mesh, start_step=start_step))
+                   sharded_batches(source, dcfg, mesh, start_step=start_step,
+                                   microbatches=micro))
         next_batch = lambda: next(data_it)   # noqa: E731
     else:
         # a fixed synthetic batch, as the reference trains without --data:
@@ -123,7 +145,7 @@ def cmd_train(args) -> int:
         tokens = batch_rows(torch.randint(
             0, cfg.vocab_size, (args.batch, args.seq_len + 1), device=device,
             generator=torch.Generator(device).manual_seed(1),
-        ), mesh)
+        ), mesh, micro)
         next_batch = lambda: tokens          # noqa: E731
 
     def maybe_save(i: int, last: int):
@@ -169,7 +191,7 @@ def cmd_train(args) -> int:
         # the first step's loss, unrounded: an imported checkpoint's is
         # the imported weights' loss on the first batch
         "first_loss": first_loss,
-        "mesh": mesh_report(mesh, device),
+        "mesh": mesh_report(mesh, device, step if args.pipe > 1 else None),
         "resumed_from": start_step,
     })
     return 0
@@ -188,22 +210,23 @@ def cmd_convert(args) -> int:
     sidecar.  A checkpoint of one process restores onto a mesh too."""
     import torch.distributed as dist
 
+    from ..models import training
     from ..models.convert import (cfg_to_json, family, load_hf_checkpoint,
-                                  shard_params)
+                                  param_specs, shard_params)
 
     bootstrap, device = init_distributed(args.bootstrap, args.device)
     mesh = build_mesh(args, bootstrap, device)
-    if mesh is not None and mesh.plan.size() > 1:
-        _refuse_on_mesh(args)
     with maybe_profile(args.profile, "convert", device):
         params, cfg = load_hf_checkpoint(args.hf_path, device=device)
         log(f"imported {cfg.num_params() / 1e9:.2f}B params from "
             f"{args.hf_path}")
-        # the family's make_train_step picks the optimizer, so the
-        # saved state has the structure cmd_train restores into
-        optimizer = "adam8bit" if args.optimizer == "adam8bit" else None
-        _, _, optimizer = _train_step_factory(family(cfg))(
-            cfg, optimizer=optimizer, device=device, mesh=mesh)
+        # the optimizer a train step of the family builds, so the saved
+        # state has the structure cmd_train restores into; over --pipe the
+        # plain specs (pipe replicates), which a pipeline run's restore
+        # reshards
+        optimizer = training.resolve_optimizer(
+            "adam8bit" if args.optimizer == "adam8bit" else None, mesh,
+            None if mesh is None else param_specs(cfg))
         if mesh is not None:
             params = shard_params(params, cfg, mesh)
         opt_state = optimizer.init(params)
