@@ -147,7 +147,30 @@ Phases, each printing JSON lines; any failure exits non-zero:
     memory beside the single-device step's; then ``MoEConfig.small`` cut
     to 4 layers over 2 stages at 4 x 2048, 1f1b with 4 microbatches, 3
     steps: the loss falls, and its first loss is gpipe's within 5e-2;
-26. the kernel table: each kernel's time at its path's shapes beside its
+26. probe: the port's CUDA device probe (``topology.from_runtime``): the
+    card's name as ``nvidia-smi`` gives it, every visible device, a flat
+    mesh ``(count,)``;
+27. entry: ``graft.entry()``'s flagship forward (vocab 32,000, hidden
+    1024, 8 layers, head_dim 64) on 2 x 128 constant tokens: logits
+    [2, 128, 32000], finite, the flash forward and RMSNorm forward
+    launches of one call, its device ms;
+28. dryrun_world1: ``graft.dryrun_multichip(1)``, every section of the
+    dry run through a world-1 NCCL mesh (2b skipped at pipe 1), two steps
+    each: each section's losses, seconds and launches; kernel 6 in
+    sections 1 and 1b, kernels 1 to 5 in 1b, 1b's two losses on random
+    tokens within 5e-2 of the plain steps on the CPU;
+    ``dryrun_multichip(2)`` refused on a one-card machine;
+29. perf_decomp: ``measure.decompose`` at ``tools/perf_decomp.py``'s
+    defaults (``llama3-1b``, 4 x 2048, "full" remat, xent 512, AdamW, 10
+    calls a stage): the forward, forward + backward and step seconds,
+    MFU, the multipliers and the bf16 matmul probe; the step's loss
+    finite and its seconds within 15% of ``measure.measure``'s at the
+    same shape;
+30. remat_search: ``measure.remat_search`` of ``llama3-1b`` over the five
+    remat policies x adam8 / adamw at batch 4 x 2048, xent 512: every row
+    that ran has a loss in (0, 20), at least one row per optimizer ran,
+    rows out of device memory reported as failed;
+31. the kernel table: each kernel's time at its path's shapes beside its
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
@@ -183,6 +206,11 @@ the whole script.
     python3 chip_smoke.py --pipeline
 
 builds the kernels and runs only phase 25.
+
+    python3 chip_smoke.py --remat-search
+
+builds the kernels and runs only phase 30 at ``tools/remat_search.py``'s
+batches, 4 and 8.
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -237,6 +265,9 @@ from tpu_network_operator_torch.models.llama import (  # noqa: E402
     params_to,
     shard_params,
 )
+# measure.peaks: the published dense peaks per SKU (device memory B/s,
+# bf16 tensor FLOP/s, f32 non-tensor FLOP/s), the measuring tools' table
+from tpu_network_operator_torch import measure  # noqa: E402
 from tpu_network_operator_torch.ops import _kernels  # noqa: E402
 from tpu_network_operator_torch.ops import flash_attention as fa  # noqa: E402
 from tpu_network_operator_torch.ops import norms  # noqa: E402
@@ -335,13 +366,6 @@ DESIGN = {
                     "card at once",
 }
 
-# published dense peaks per SKU: (device memory B/s, bf16 tensor FLOP/s,
-# f32 non-tensor FLOP/s) -- NVIDIA data sheets
-PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100": (3.35e12, 989e12, 67e12),          # SXM5 80GB HBM3
-}
-
 # kernel vs plain on the card.  RMSNorm: both take the f32 sum of squares
 # in different orders and rsqrtf is approximate, which can flip one bf16
 # rounding of y (2^-8 relative).  Flash: the plain versions run at the
@@ -434,6 +458,17 @@ PIPE_MOE_LAYERS, PIPE_MOE_STAGES, PIPE_MOE_MICRO = 4, 2, 4
 # reference's schedule budget
 PIPE_LOSS_REL = 1e-3
 PIPE_MOE_SCHEDULE_TOL = 5e-2
+# the perf decomposition at tools/perf_decomp.py's defaults (llama3-1b, 4
+# x 2048, "full" remat, xent chunks of 512, AdamW, 10 calls a stage); its
+# step time against measure()'s at the same shape in the same run, a
+# check that the two timers agree (not a speed gate)
+DECOMP_BATCH, DECOMP_SEQ, DECOMP_ITERS, DECOMP_CHUNK = 4, 2048, 10, 512
+DECOMP_STEP_REL = 0.15
+# the remat sweep (five policies x adam8 / adamw) of llama3-1b at 2048
+# positions, xent 512: batch 4 in the whole script, tools/remat_search.py's
+# 4 and 8 under --remat-search
+SWEEP_BATCHES, SWEEP_FULL_BATCHES = (4,), (4, 8)
+SWEEP_OPTS = ("adam8", "adamw")
 
 
 def emit(payload: dict) -> None:
@@ -457,13 +492,6 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def peaks(name: str):
-    for key, val in PEAKS.items():
-        if key in name:
-            return val
-    fail(f"no published peaks for {name!r}")
 
 
 def time_ms(fn, iters: int = 20, reps: int = 11) -> float:
@@ -1322,7 +1350,7 @@ def adam8_cell():
 
 
 def phase_train_adam8(name: str) -> dict:
-    bw, _, _ = peaks(name)
+    bw, _, _ = measure.peaks(name)
     cfg, step, params, opt_state, tokens = adam8_cell()
     n = cfg.layers
     leaves = list(training.tree_leaves(params))
@@ -1389,7 +1417,7 @@ def adam8_leaf_times(name: str) -> dict:
     with a gradient on one batch's rows only, as in the train step.  Uses
     only ``adamw8bit``, ``init`` and ``apply``, so it times any tree of the
     port."""
-    bw, _, f32_peak = peaks(name)
+    bw, _, f32_peak = measure.peaks(name)
     cfg = LlamaConfig.llama3_1b()
     gen = torch.Generator("cuda").manual_seed(SEED + 13)
     params = init_params(cfg, gen, "cuda")
@@ -1529,7 +1557,7 @@ def phase_train_moe(name: str) -> dict:
     timed steps with kernels 1 to 5's launches read per step and the loss
     required to fall, then one profiled step; then a short adamw8bit run
     of the same model, kernel 6 updating the MoE tree in each step."""
-    bw, _, _ = peaks(name)
+    bw, _, _ = measure.peaks(name)
     cfg, step, opt, params, opt_state, tokens = moe_cell()
     n = cfg.layers
     params, opt_state, losses, step_s, per_step, first_s = run_steps(
@@ -3104,7 +3132,7 @@ def phase_adam8_virtual_shards(name: str) -> dict:
     from tpu_network_operator_torch.models.llama import shard_leaf
     from tpu_network_operator_torch.parallel import MeshCoord, plan_axes
 
-    bw, _, _ = peaks(name)
+    bw, _, _ = measure.peaks(name)
     out = {}
     for tree, model, cfg in (("llama3-1b", llama, LlamaConfig.llama3_1b()),
                              ("moe-small", moe, moe.MoEConfig.small())):
@@ -3587,10 +3615,167 @@ def phase_pipeline_virtual() -> dict:
     return counts
 
 
+def phase_probe(smi: str) -> None:
+    """The port's CUDA device probe (``topology.from_runtime``): the
+    card's name as ``nvidia-smi`` gives it, every visible device, a flat
+    mesh."""
+    from tpu_network_operator_torch import topology
+
+    topo = topology.from_runtime()
+    count = torch.cuda.device_count()
+    smi_name = smi.split(",")[0].strip()
+    emit({"phase": "probe", "topology": topo.to_dict(),
+          "nvidia_smi_name": smi_name, "device_count": count})
+    check(topo.accelerator_type == smi_name,
+          f"the probe names the card {topo.accelerator_type!r}, nvidia-smi "
+          f"{smi_name!r}")
+    check(topo.num_chips == count,
+          f"the probe found {topo.num_chips} devices, torch {count}")
+    check(topo.ici_mesh == (count,) and topo.source == "cuda",
+          f"the probe's mesh is {topo.ici_mesh} from {topo.source}")
+
+
+def phase_entry() -> dict:
+    """``graft.entry()``: the flagship forward at compile-check size on
+    the card, logits [2, 128, 32000] finite, with the flash forward and
+    RMSNorm forward launches of one call (8 and 17)."""
+    from tpu_network_operator_torch import graft
+
+    fn, args = graft.entry()
+    logits, launches = kernel_launches_of(lambda: fn(*args))
+    cfg = fn.keywords["cfg"]
+    emit({"phase": "entry", "config": dataclasses.asdict(cfg) | {
+              "dtype": str(cfg.dtype)},
+          "params": cfg.num_params(), "logits": list(logits.shape),
+          "finite": bool(torch.isfinite(logits).all()),
+          "forward_ms": time_ms_eager(lambda: fn(*args)),
+          "launches": launches})
+    check(list(logits.shape) == [2, 128, cfg.vocab_size],
+          f"entry() gave logits {list(logits.shape)}")
+    check(bool(torch.isfinite(logits).all()), "entry() logits not finite")
+    check(launches["flash_fwd"] == cfg.layers
+          and launches["rms_norm_fwd"] == 2 * cfg.layers + 1,
+          f"entry()'s forward launched {launches}")
+    del logits, args
+    return launches
+
+
+def phase_dryrun_world1() -> dict:
+    """``graft.dryrun_multichip(1)``: every section's two train steps
+    through a world-1 NCCL mesh, each section's losses, seconds and
+    launches; kernel 6 in sections 1 and 1b, kernels 1 to 5 in 1b, 1b's
+    kernels' two steps on random tokens within 5e-2 of the plain steps on
+    the CPU; ``dryrun_multichip(2)`` refused on a one-card machine."""
+    from tpu_network_operator_torch import graft
+
+    t0 = time.perf_counter()
+    result = graft.dryrun_multichip(1)
+    seconds = time.perf_counter() - t0
+    sections = result["sections"]
+    count = torch.cuda.device_count()
+    refusal = None
+    if count == 1:
+        try:
+            graft.dryrun_multichip(2)
+        except RuntimeError as e:
+            refusal = str(e)
+    emit({"phase": "dryrun_world1", "seconds": seconds,
+          "sections": sections, "lines": result["lines"],
+          "refusal_at_2": refusal})
+    check(result["lines"][-1] == graft.OK_LINE,
+          f"the dry run ended with {result['lines'][-1]!r}")
+    check(set(sections) == {"1", "1b", "2", "3"},
+          f"the dry run at a world of one ran {sorted(sections)}")
+    for section, res in sections.items():
+        for key in ("loss", "next_loss"):
+            check(math.isfinite(res[key]) and 0 < res[key] < 20,
+                  f"dry-run section {section}'s {key} is {res[key]}")
+    for section in ("1", "1b"):
+        check(sections[section]["launches"]["adam8_fused"] > 0,
+              f"kernel 6 did not launch in dry-run section {section}")
+    check(all(n > 0 for n in sections["1b"]["launches"].values()),
+          f"section 1b launched {sections['1b']['launches']}")
+    check(sections["1b"]["drift"] < graft.DRIFT_TOL,
+          f"section 1b's kernels drift {sections['1b']['drift']} from the "
+          f"plain steps on the CPU: {sections['1b']['drift_losses']}")
+    if count == 1:
+        check(refusal is not None and "needs 2 CUDA devices" in refusal,
+              f"dryrun_multichip(2) on one card: {refusal!r}")
+    return {f"dryrun_world1_section_{k}": v["launches"]
+            for k, v in sections.items()}
+
+
+def decomp_cfg() -> LlamaConfig:
+    return dataclasses.replace(LlamaConfig.llama3_1b(),
+                               xent_chunk=DECOMP_CHUNK, remat_policy="full")
+
+
+def phase_perf_decomp() -> dict:
+    """``measure.decompose`` at tools/perf_decomp.py's defaults, then
+    ``measure.measure`` at the same shape: the step's loss finite, its
+    seconds within DECOMP_STEP_REL of measure()'s."""
+    cfg = decomp_cfg()
+    _kernels.reset_launches()
+    out = measure.decompose(cfg, DECOMP_BATCH, DECOMP_SEQ, DECOMP_ITERS,
+                            "cuda", name="llama3-1b")
+    launches = dict(_kernels.LAUNCHES)
+    torch.cuda.empty_cache()
+    row = measure.measure("llama3-1b/full/adamw/b4", cfg, DECOMP_BATCH,
+                          DECOMP_SEQ, "cuda", iters=DECOMP_ITERS,
+                          log=lambda msg: print(msg, file=sys.stderr,
+                                                flush=True))
+    measured = DECOMP_BATCH * DECOMP_SEQ / row["tokens_per_sec_per_chip"]
+    rel = abs(out["seconds"]["step"] - measured) / measured
+    emit({"phase": "perf_decomp", **out, "measure_row": row,
+          "measure_step_s": measured, "step_vs_measure_rel": rel,
+          "launches": launches})
+    check(math.isfinite(out["loss"]), f"the step's loss is {out['loss']}")
+    check(rel <= DECOMP_STEP_REL,
+          f"decompose's step {out['seconds']['step']} s and measure()'s "
+          f"{measured} s differ by {rel:.3f}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_remat_search(batches) -> dict:
+    """``measure.remat_search`` of llama3-1b over the five policies x
+    adam8 / adamw at ``batches``: every row that ran has a loss in (0,
+    20), at least one row per optimizer ran; rows that ran out of device
+    memory are reported as failed."""
+    out_path = SCRATCH / "remat_search.jsonl"
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    out_path.unlink(missing_ok=True)
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = measure.remat_search(
+        LlamaConfig.llama3_1b(), "llama3-1b", batches, SWEEP_OPTS, 2048,
+        DECOMP_CHUNK, "cuda", str(out_path),
+        log=lambda msg: print(msg, file=sys.stderr, flush=True))
+    launches = dict(_kernels.LAUNCHES)
+    written = len(out_path.read_text().splitlines())
+    out_path.unlink()
+    emit({"phase": "remat_search", "batches": list(batches),
+          "seconds": time.perf_counter() - t0, "rows": res["rows"],
+          "skipped": res["skipped"], "failed": res["failed"],
+          "best": {k: v for k, v in res["best"].items() if k != "rows"},
+          "rows_written": written,
+          "budget_bytes": measure.device_bytes("cuda"),
+          "launches": launches})
+    for row in res["rows"]:
+        check(0 < row["loss"] < 20, f"{row['config']}: loss {row['loss']}")
+    for opt in SWEEP_OPTS:
+        check(any(f"/{opt}/" in row["config"] for row in res["rows"]),
+              f"no {opt} row of the sweep ran")
+    check(written == len(res["rows"]),
+          f"{written} rows written for {len(res['rows'])} run")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_table(name: str, launches: dict, train_launches: dict,
                 adam8: dict, moe_runs: dict, more_launches: dict,
                 ring_runs: dict, mesh_adam8: dict, virtual: dict):
-    bw, bf16_peak, f32_peak = peaks(name)
+    bw, bf16_peak, f32_peak = measure.peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
     h, hkv, d = cfg.heads, cfg.kv_heads, cfg.head_dim
@@ -3799,6 +3984,10 @@ def main(argv=None) -> int:
     args.add_argument("--pipeline", action="store_true",
                       help="only build the kernels and run the pipeline "
                            "over virtual stages (phase_pipeline_virtual)")
+    args.add_argument("--remat-search", action="store_true",
+                      help="only build the kernels and run the remat sweep "
+                           "at tools/remat_search.py's batches 4 and 8 "
+                           "(phase_remat_search)")
     args = args.parse_args(argv)
     name, smi = phase_device()
     if args.collectives:
@@ -3809,6 +3998,10 @@ def main(argv=None) -> int:
     phase_build()
     if args.pipeline:
         phase_pipeline_virtual()
+        print(smi, flush=True)
+        return 0
+    if args.remat_search:
+        phase_remat_search(SWEEP_FULL_BATCHES)
         print(smi, flush=True)
         return 0
     if args.adam8_leaves or args.remat_ffn:
@@ -3859,6 +4052,11 @@ def main(argv=None) -> int:
     more_launches["exec_bench_world1"] = phase_exec_bench_world1()
     for run, counts in phase_pipeline_virtual().items():
         more_launches[f"pipeline_virtual_{run}_step"] = counts
+    phase_probe(smi)
+    more_launches["entry_forward"] = phase_entry()
+    more_launches.update(phase_dryrun_world1())
+    more_launches["perf_decomp_stages"] = phase_perf_decomp()
+    more_launches["remat_search_sweep"] = phase_remat_search(SWEEP_BATCHES)
     phase_table(name, launches, train_launches, adam8, moe_runs,
                 more_launches, ring_runs, mesh_adam8, virtual)
     print(smi, flush=True)

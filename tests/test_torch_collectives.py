@@ -80,9 +80,8 @@ def _port_sizes(rank, world):
 
 
 @pytest.fixture(scope="module")
-def port_sizes(tmp_path_factory):
-    return run_ranks(1, _port_sizes,
-                     store_dir=tmp_path_factory.mktemp("collectives_store"))[0]
+def port_sizes():
+    return run_ranks(1, _port_sizes)[0]
 
 
 @pytest.mark.parametrize("op", [*tcoll.OPS, "dcn_all_reduce[ring]"])

@@ -250,9 +250,8 @@ def single(inputs):
 
 
 @pytest.fixture(scope="module")
-def world4(inputs, tmp_path_factory):
-    return run_ranks(4, adam8_rank, inputs, CASES,
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world4(inputs):
+    return run_ranks(4, adam8_rank, inputs, CASES)
 
 
 def assert_same_bits(got: dict, want: dict, what: str) -> None:

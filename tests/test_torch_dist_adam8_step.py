@@ -55,9 +55,8 @@ def inputs():
 
 
 @pytest.fixture(scope="module")
-def world2(inputs, tmp_path_factory):
-    return run_ranks(2, step_rank, inputs["llama"][0], inputs["tokens"],
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world2(inputs):
+    return run_ranks(2, step_rank, inputs["llama"][0], inputs["tokens"])
 
 
 def test_adam8_train_step_on_the_mesh_matches_reference(world2, inputs):

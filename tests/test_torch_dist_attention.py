@@ -20,13 +20,10 @@ children import this module (not JAX) to find their target.
 start ranks as a launcher does, on a TCP rendezvous port.
 """
 
-import datetime
 import os
-import queue
 import random
 import socket
 import time
-import traceback
 
 import numpy as np
 import pytest
@@ -82,60 +79,23 @@ def retry_on_taken_port(launch, attempts: int = 3):
                 raise
 
 
-def _rank_entry(fn, rank, world, store, results, args):
-    import torch.distributed as dist
+def _without_device(rank, world, device, fn, *args):
+    return fn(rank, world, *args)
 
-    torch.set_num_threads(1)
-    dist.init_process_group(
-        "gloo", init_method=f"file://{store}", rank=rank, world_size=world,
-        timeout=datetime.timedelta(seconds=60))
+
+def run_ranks(world, fn, *args, timeout=RANK_TIMEOUT_S):
+    """``fn(rank, world, *args)`` in ``world`` gloo rank processes started
+    by the port's launcher (``graft.launch_ranks``): the results in rank
+    order.  A rank that raises, dies or outlasts ``timeout`` fails the
+    caller's assertion with the launcher's message naming it; every
+    process is gone on return."""
+    from tpu_network_operator_torch import graft
+
     try:
-        results.put((rank, True, fn(rank, world, *args)))
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
-    finally:
-        dist.destroy_process_group()
-
-
-def run_ranks(world, fn, *args, store_dir, timeout=RANK_TIMEOUT_S):
-    """``fn(rank, world, *args)`` in ``world`` spawned processes joined by
-    a gloo group (rendezvous through a file store in ``store_dir``): the
-    results in rank order.  A rank that raises, dies or outlasts
-    ``timeout`` fails the caller; every process is gone on return."""
-    import multiprocessing
-
-    ctx = multiprocessing.get_context("spawn")
-    results = ctx.Queue()
-    store = os.path.join(str(store_dir), f"store-{time.monotonic_ns()}")
-    procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(fn, r, world, store, results, args))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    got, deadline = {}, time.monotonic() + timeout
-    try:
-        while len(got) < world and time.monotonic() < deadline:
-            try:
-                rank, ok, value = results.get(timeout=1.0)
-            except queue.Empty:
-                dead = [p.exitcode for p in procs
-                        if p.exitcode not in (None, 0)]
-                if dead:
-                    break
-                continue
-            got[rank] = (ok, value)
-    finally:
-        for p in procs:
-            p.join(timeout=5)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    errors = [v for ok, v in got.values() if not ok]
-    assert not errors, errors[0]
-    assert len(got) == world, (
-        f"{world - len(got)} of {world} ranks gave no result (exit codes "
-        f"{[p.exitcode for p in procs]})")
-    return [got[r][1] for r in range(world)]
+        return graft.launch_ranks(world, _without_device, fn, *args,
+                                  device_type="cpu", timeout=timeout)
+    except RuntimeError as e:
+        raise AssertionError(str(e)) from e
 
 
 # -- the cases ------------------------------------------------------------------
@@ -213,11 +173,10 @@ def _assemble(per_rank, name, n_seq, n_tensor):
 
 
 @pytest.fixture(scope="module", params=[2, 4], ids=lambda n: f"{n}ranks")
-def world(request, tmp_path_factory):
+def world(request):
     n = request.param
     cases = _cases(n)
-    per_rank = run_ranks(n, _attention_rank, cases,
-                         store_dir=tmp_path_factory.mktemp("store"))
+    per_rank = run_ranks(n, _attention_rank, cases)
     return n, cases, per_rank
 
 

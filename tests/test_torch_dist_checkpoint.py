@@ -190,8 +190,7 @@ def world4(inputs, single, tmp_path_factory):
     for name, (p, state, _, _) in single.items():
         with TrainCheckpointer(dirs[name]["single"]) as ckpt:
             ckpt.save(2, p, state)
-    results = run_ranks(4, reshard_rank, inputs, dirs,
-                        store_dir=tmp_path_factory.mktemp("store"))
+    results = run_ranks(4, reshard_rank, inputs, dirs)
     return results, dirs
 
 

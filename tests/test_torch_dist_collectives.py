@@ -149,9 +149,8 @@ def _world_rank(rank, world):
 
 
 @pytest.fixture(scope="module")
-def world4(tmp_path_factory):
-    return run_ranks(WORLD, _world_rank,
-                     store_dir=tmp_path_factory.mktemp("coll_store"))
+def world4():
+    return run_ranks(WORLD, _world_rank)
 
 
 def _jax_mesh(name):

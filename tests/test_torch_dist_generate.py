@@ -76,9 +76,8 @@ def prompt():
 
 
 @pytest.fixture(scope="module")
-def world4(reference_params, prompt, tmp_path_factory):
-    return run_ranks(4, _generate_rank, reference_params, prompt,
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world4(reference_params, prompt):
+    return run_ranks(4, _generate_rank, reference_params, prompt)
 
 
 @pytest.mark.parametrize("name", list(MESHES))

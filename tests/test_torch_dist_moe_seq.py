@@ -29,9 +29,8 @@ def tokens():
 
 
 @pytest.fixture(scope="module")
-def world4(trees, tokens, tmp_path_factory):
-    return run_ranks(4, moe_rank, trees, tokens, HERE,
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world4(trees, tokens):
+    return run_ranks(4, moe_rank, trees, tokens, HERE)
 
 
 @pytest.fixture(scope="module")

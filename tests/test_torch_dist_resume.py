@@ -170,8 +170,7 @@ def workload_runs(converted, tmp_path_factory):
     directory = tmp_path_factory.mktemp("workload")
     np.random.default_rng(0).integers(0, 256, 20_000, dtype=np.uint16).tofile(
         directory / "tokens.bin")
-    return run_ranks(2, workload_rank, str(directory), str(converted["root"]),
-                     store_dir=tmp_path_factory.mktemp("store"))
+    return run_ranks(2, workload_rank, str(directory), str(converted["root"]))
 
 
 @pytest.mark.parametrize("model", ["llama", "moe"])

@@ -139,9 +139,8 @@ def tokens():
 
 
 @pytest.fixture(scope="module")
-def world4(reference_params, tokens, tmp_path_factory):
-    return run_ranks(4, _train_rank, reference_params, tokens, 5,
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world4(reference_params, tokens):
+    return run_ranks(4, _train_rank, reference_params, tokens, 5)
 
 
 def _jcfg(kw):
@@ -256,9 +255,8 @@ def _world1_rank(rank, world, tree, tokens):
 
 
 @pytest.fixture(scope="module")
-def world1(reference_params, tokens, tmp_path_factory):
-    return run_ranks(1, _world1_rank, reference_params, tokens,
-                     store_dir=tmp_path_factory.mktemp("store"))[0]
+def world1(reference_params, tokens):
+    return run_ranks(1, _world1_rank, reference_params, tokens)[0]
 
 
 @pytest.mark.parametrize("policy", POLICIES)

@@ -39,7 +39,8 @@ def test_port_imports_no_jax_and_no_reference_package():
             f"{PACKAGE}.parallel.mesh", f"{PACKAGE}.parallel.ring",
             f"{PACKAGE}.parallel.ulysses", f"{PACKAGE}.parallel.collectives",
             f"{PACKAGE}.workload.collectives",
-            f"{PACKAGE}.workload.execbench"} <= set(mods)
+            f"{PACKAGE}.workload.execbench", f"{PACKAGE}.graft",
+            f"{PACKAGE}.topology", f"{PACKAGE}.measure"} <= set(mods)
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -84,6 +85,36 @@ def test_exec_bench_launcher_imports_no_jax_workload(tmp_path):
                      if isinstance(n, ast.ImportFrom)]
         assert not any("exec_bench" in m for m in imported), path
         assert "spec_from_file_location" not in path.read_text(), path
+
+
+@pytest.mark.parametrize("tool", ["tools/perf_decomp_torch.py",
+                                  "tools/remat_search_torch.py"])
+def test_measuring_tools_import_no_jax_and_no_bench(tool):
+    """The port's two measuring tools import no ``jax``, not ``bench.py``
+    or ``__graft_entry__.py``, and nothing of the JAX package; no port
+    module imports them."""
+    code = (
+        "import importlib.util, json, sys\n"
+        f"spec = importlib.util.spec_from_file_location('tool', {tool!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert callable(mod.main)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'bench', '__graft_entry__', 'tpu_network_operator'))\n"
+        "print(json.dumps(bad))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+    name = Path(tool).stem
+    for path in [*(ROOT / PACKAGE).rglob("*.py"), ROOT / "chip_smoke.py"]:
+        tree = ast.parse(path.read_text())
+        imported = [a.name for n in ast.walk(tree)
+                    if isinstance(n, ast.Import) for a in n.names]
+        imported += [n.module or "" for n in ast.walk(tree)
+                     if isinstance(n, ast.ImportFrom)]
+        assert not any(name in m for m in imported), path
 
 
 def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):

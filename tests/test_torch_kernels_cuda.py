@@ -1099,3 +1099,37 @@ def test_pipeline_in_process_repeats_its_loss_bits(cuda):
     assert per_run["flash_bwd_dq"] == per_run["flash_bwd_dkv"] == n * m
     assert per_run["rms_norm_fwd"] == (4 * n + 1) * m
     assert per_run["rms_norm_bwd"] == (2 * n + 1) * m
+
+
+def test_entry_forward_repeats_its_bits(cuda):
+    """``graft.entry()``'s flagship forward on the card: logits [2, 128,
+    32000], finite, the same bits on a repeat (the flash forward and
+    RMSNorm forward kernels sum in fixed orders), both kernels launched."""
+    from tpu_network_operator_torch import graft
+
+    fn, args = graft.entry()
+    _kernels.reset_launches()
+    first = fn(*args)
+    again = fn(*args)
+    assert first.shape == (2, 128, 32_000)
+    assert bool(torch.isfinite(first).all())
+    assert torch.equal(first, again)
+    assert _kernels.LAUNCHES["flash_fwd"] == 2 * 8
+    assert _kernels.LAUNCHES["rms_norm_fwd"] == 2 * (2 * 8 + 1)
+
+
+def test_dryrun_world1_repeats_section_1b_bits(cuda):
+    """``graft.dryrun_multichip(1)`` twice at a world of one: section 1b's
+    losses (every kernel on the mesh path, the second step's after the
+    backward kernels and the 8-bit update) the same bits each run, those
+    on random tokens within the reference's budget of the plain steps on
+    the CPU, and each of the six kernels launched in it."""
+    from tpu_network_operator_torch import graft
+
+    runs = [graft.dryrun_multichip(1) for _ in range(2)]
+    first, again = (r["sections"]["1b"] for r in runs)
+    for key in ("loss", "next_loss", "drift_losses"):
+        assert first[key] == again[key], key
+    assert first["drift"] < graft.DRIFT_TOL
+    assert all(n > 0 for n in first["launches"].values()), first["launches"]
+    assert runs[0]["lines"][-1] == graft.OK_LINE

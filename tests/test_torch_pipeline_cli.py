@@ -76,8 +76,7 @@ def runs(tmp_path_factory):
     write_hf_llama(root / "hf")
     _main(["convert", "--device", "cpu", "--hf-path", str(root / "hf"),
            "--checkpoint-dir", str(root / "one")])
-    return run_ranks(2, _rank, str(root),
-                     store_dir=tmp_path_factory.mktemp("store"))
+    return run_ranks(2, _rank, str(root))
 
 
 @pytest.mark.parametrize("name", [*RUNS, "llama_interleaved",

@@ -99,9 +99,8 @@ def tokens():
 
 
 @pytest.fixture(scope="module")
-def world4(reference_params, tokens, tmp_path_factory):
-    return run_ranks(4, _rank, reference_params, tokens,
-                     store_dir=tmp_path_factory.mktemp("store"))
+def world4(reference_params, tokens):
+    return run_ranks(4, _rank, reference_params, tokens)
 
 
 def _jcfg():

@@ -199,8 +199,7 @@ def world4(inputs, tmp_path_factory):
     dirs = {name: {kind: str(root / name / kind)
                    for kind in ("flat", "interleaved")}
             for name in ("adam8bit", "adamw")}
-    results = run_ranks(4, _rank, inputs, dirs,
-                        store_dir=tmp_path_factory.mktemp("store"))
+    results = run_ranks(4, _rank, inputs, dirs)
     return results, dirs
 
 
