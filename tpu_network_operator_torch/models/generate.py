@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..ops.attention import causal_attention
 from ..ops.flash_attention import flash_attention
 from ..ops.flash_attention import use_flash
@@ -116,29 +116,30 @@ def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
     q = apply_rope_at(q, cos, sin, positions)
     k = apply_rope_at(k, cos, sin, positions)
 
-    if cks is not None:
-        kq, k_sc = _quant_rows(k)
-        vq, v_sc = _quant_rows(v)
-        ck[:, pos:pos + s] = kq
-        cv[:, pos:pos + s] = vq
-        cks[:, pos:pos + s] = k_sc
-        cvs[:, pos:pos + s] = v_sc
-    else:
-        ck[:, pos:pos + s] = k
-        cv[:, pos:pos + s] = v
+    with tracing.span("generate.attention"):
+        if cks is not None:
+            kq, k_sc = _quant_rows(k)
+            vq, v_sc = _quant_rows(v)
+            ck[:, pos:pos + s] = kq
+            cv[:, pos:pos + s] = vq
+            cks[:, pos:pos + s] = k_sc
+            cvs[:, pos:pos + s] = v_sc
+        else:
+            ck[:, pos:pos + s] = k
+            cv[:, pos:pos + s] = v
 
-    # query i attends cache slots <= pos + i; slots past the filled
-    # prefix are masked by exactly that, so reading only attn_len rows is
-    # a pure work reduction
-    lim = ck.shape[1] if attn_len is None else min(attn_len, ck.shape[1])
-    ckv, cvv = ck[:, :lim], cv[:, :lim]
-    if cks is not None:
-        ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
-        cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
-    if _prefill_flash_ok(cfg, pos, s, lim):
-        a = flash_attention(q, k, v)
-    else:
-        a = causal_attention(q, ckv, cvv, q_offset=pos)
+        # query i attends cache slots <= pos + i; slots past the filled
+        # prefix are masked by exactly that, so reading only attn_len rows
+        # is a pure work reduction
+        lim = ck.shape[1] if attn_len is None else min(attn_len, ck.shape[1])
+        ckv, cvv = ck[:, :lim], cv[:, :lim]
+        if cks is not None:
+            ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
+            cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
+        if _prefill_flash_ok(cfg, pos, s, lim):
+            a = flash_attention(q, k, v)
+        else:
+            a = causal_attention(q, ckv, cvv, q_offset=pos)
     x = x + comm.reduce_from(a.reshape(b, s, -1) @ lay.w(lp["wo"], 1),
                              lay.tp)
 
@@ -270,9 +271,10 @@ def generate(
     rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,
                        scaling=cfg.rope_scaling_dict, device=device)
     # prefill attends over its own keys only, not the whole buffer
-    logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
-                                       attn_len=s, rope=rope, layout=lay)
-    tok = _sample(logits[:, -1], temperature, generator, top_k, top_p)
+    with tracing.span("generate.prefill"):
+        logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
+                                           attn_len=s, rope=rope, layout=lay)
+        tok = _sample(logits[:, -1], temperature, generator, top_k, top_p)
 
     toks = [prompt.to(torch.int32)]
     steps_total = max_new_tokens - 1
@@ -286,12 +288,13 @@ def generate(
         n = min(steps_total - done, attn_len - (s + done))
         for _ in range(n):
             toks.append(tok[:, None])
-            logits, cache = forward_with_cache(
-                params, tok[:, None].long(), cache, s + done, cfg,
-                attn_len=attn_len, rope=rope, layout=lay,
-            )
-            tok = _sample(logits[:, -1], temperature, generator, top_k,
-                          top_p)
+            with tracing.span("generate.decode_step"):
+                logits, cache = forward_with_cache(
+                    params, tok[:, None].long(), cache, s + done, cfg,
+                    attn_len=attn_len, rope=rope, layout=lay,
+                )
+                tok = _sample(logits[:, -1], temperature, generator, top_k,
+                              top_p)
             done += 1
     toks.append(tok[:, None])
     return torch.cat(toks, dim=1)

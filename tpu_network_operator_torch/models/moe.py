@@ -31,7 +31,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..ops.norms import rms_norm
 from ..ops.rope import rope_angles
 from ..parallel import comm
@@ -291,7 +291,10 @@ def route(probs: torch.Tensor, k: int,
     top-k slots first (the GShard priority order); the experts are
     :func:`top_k_experts`.  The capacity positions are integer cumulative
     sums, exact on every device.  ``combine`` carries the gradient to
-    ``probs`` through the normalized top-k values; ``dispatch`` none."""
+    ``probs`` through the normalized top-k values; ``dispatch`` none.
+    While a profiler records, the forward counts the assignments past
+    capacity (``moe.assignments_dropped``) and the capacity slots left
+    empty (``moe.slots_empty``) with :func:`..tracing.count`."""
     e = probs.shape[-1]
     gate_idx = top_k_experts(probs.detach(), k)                  # [B,S,k]
     gate_vals = probs.gather(-1, gate_idx)
@@ -316,6 +319,13 @@ def route(probs: torch.Tensor, k: int,
         dispatch = d if dispatch is None else dispatch | d
         combine = w if combine is None else combine + w
         counts = counts + m.sum(1)
+    # counts [B, E]: each expert's assignments before capacity; an expert
+    # keeps min(count, capacity) of them
+    tracing.count("moe.assignments_dropped",
+                  lambda: (counts - capacity).clamp_min(0).sum())
+    tracing.count("moe.slots_empty",
+                  lambda: counts.numel() * capacity
+                  - counts.clamp_max(capacity).sum())
     return dispatch, combine
 
 
@@ -337,31 +347,37 @@ def _moe_ffn(cfg: MoEConfig, lp: Params, y: torch.Tensor,
     product."""
     lay = layout or Layout(cfg)
     b, s, _ = y.shape
-    probs = torch.softmax(y.float() @ lp["router"], dim=-1)      # [B,S,E]
-    dispatch, combine = route(comm.copy_to(probs, lay.et),
-                              cfg.experts_per_token, cfg.capacity(s))
+    with tracing.span("moe.route"):
+        probs = torch.softmax(y.float() @ lp["router"], dim=-1)  # [B,S,E]
+        dispatch, combine = route(comm.copy_to(probs, lay.et),
+                                  cfg.experts_per_token, cfg.capacity(s))
 
-    # Switch aux loss: experts balanced when the dispatched fraction (after
-    # capacity drops) tracks 1/E
-    sums = torch.stack([dispatch.any(-1).float().sum((0, 1)),
-                        probs.sum((0, 1))])                       # [2,E]
-    frac, mean_probs = comm.psum(sums, lay.batch) / (
-        b * lay.batch_shards * s)
-    aux = cfg.experts * (frac * mean_probs).sum()
+        # Switch aux loss: experts balanced when the dispatched fraction
+        # (after capacity drops) tracks 1/E
+        sums = torch.stack([dispatch.any(-1).float().sum((0, 1)),
+                            probs.sum((0, 1))])                   # [2,E]
+        frac, mean_probs = comm.psum(sums, lay.batch) / (
+            b * lay.batch_shards * s)
+        aux = cfg.experts * (frac * mean_probs).sum()
 
     first, last = lay.experts
     if last - first < cfg.experts:
         dispatch = dispatch[:, :, first:last]
         combine = combine[:, :, first:last]
-    y = comm.copy_to(y, lay.et)
-    xin = torch.einsum("bsec,bsh->ebch", dispatch.to(cfg.dtype), y)
-    gated = torch.nn.functional.silu(
-        torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_gate"], 1))
-    ) * torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_up"], 1))
-    out = torch.einsum("ebcf,efh->ebch", gated, lay.w(lp["w_down"], 2))
+    with tracing.span("moe.dispatch"):
+        y = comm.copy_to(y, lay.et)
+        xin = torch.einsum("bsec,bsh->ebch", dispatch.to(cfg.dtype), y)
+    with tracing.span("moe.experts"):
+        gated = torch.nn.functional.silu(
+            torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_gate"], 1))
+        ) * torch.einsum("ebch,ehf->ebcf", xin, lay.w(lp["w_up"], 1))
+        out = torch.einsum("ebcf,efh->ebch", gated, lay.w(lp["w_down"], 2))
     # combine: the weighted un-dispatch back to [B, S, h]
-    y_out = torch.einsum("ebch,bsec->bsh", out, combine.to(cfg.dtype))
-    return comm.reduce_from(y_out, lay.et), aux
+    with tracing.span("moe.combine"):
+        y_out = comm.reduce_from(
+            torch.einsum("ebch,bsec->bsh", out, combine.to(cfg.dtype)),
+            lay.et)
+    return y_out, aux
 
 
 def ffn_over_expert_shards(cfg: MoEConfig, lp: Params, y: torch.Tensor,

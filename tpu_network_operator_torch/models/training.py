@@ -21,6 +21,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from .. import tracing
 from ..ops.norms import rms_norm
 from ..parallel import comm
 
@@ -435,11 +436,14 @@ def make_train_step(
         leaves = list(tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
-        loss = loss_fn(params, tokens)
-        grads = torch.autograd.grad(loss, leaves)
-        if reduce_grads is not None:
-            grads = reduce_grads(params, grads)
-        params, opt_state = optimizer.apply(params, grads, opt_state)
+        with tracing.span("train.forward"):
+            loss = loss_fn(params, tokens)
+        with tracing.span("train.backward"):
+            grads = torch.autograd.grad(loss, leaves)
+            if reduce_grads is not None:
+                grads = reduce_grads(params, grads)
+        with tracing.span("train.optimizer"):
+            params, opt_state = optimizer.apply(params, grads, opt_state)
         loss = loss.detach()
         return params, opt_state, (loss if reduce_loss is None
                                    else reduce_loss(loss))
