@@ -174,8 +174,10 @@ Phases, each printing JSON lines; any failure exits non-zero:
     bound, its plain version's time and one PyTorch library call's, the
     flash kernels also at the MoE cell's head_dim 128 and as the ring's
     chunk calls (2048 x 2048, the diagonal and a past chunk, f32
-    backward outputs), kernel 6 per virtual rank, and its launches in
-    every path above.
+    backward outputs), kernel 6 per virtual rank, the decode-attention
+    kernel (kernel 7, checked and timed right after phase 3) at the
+    benchmark's decode cell, at ``llama3-1b``'s serving shape and at batch
+    4, where its keys split, and its launches in every path above.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
 steps with carried state, bit for bit, each leaf shape alone, the 12
@@ -211,6 +213,11 @@ builds the kernels and runs only phase 25.
 
 builds the kernels and runs only phase 30 at ``tools/remat_search.py``'s
 batches, 4 and 8.
+
+    python3 chip_smoke.py --decode-attn
+
+builds the kernels and checks and times only the decode-attention kernel
+(its rows of phase 31).
 
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
@@ -269,6 +276,15 @@ from tpu_network_operator_torch.models.llama import (  # noqa: E402
 # bf16 tensor FLOP/s, f32 non-tensor FLOP/s), the measuring tools' table
 from tpu_network_operator_torch import measure  # noqa: E402
 from tpu_network_operator_torch.ops import _kernels  # noqa: E402
+from tpu_network_operator_torch.ops.attention import (  # noqa: E402
+    causal_attention,
+)
+from tpu_network_operator_torch.ops.decode_attention import (  # noqa: E402
+    KERNEL_ROWS,
+    _decode_attention_plain as decode_attention_plain,
+    decode_attention,
+    split_plan,
+)
 from tpu_network_operator_torch.ops import flash_attention as fa  # noqa: E402
 from tpu_network_operator_torch.ops import norms  # noqa: E402
 from tpu_network_operator_torch.parallel import ring  # noqa: E402
@@ -328,6 +344,23 @@ MIXTRAL_SMALL_CONFIG = {
 # write over 10 GB), 3 steps of A8_BATCH x A8_SEQ
 CONVERT_LAYERS, CONVERT_STEPS = 2, 3
 
+# the kernels a train step launches (all but decode attention)
+TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq",
+                 "flash_bwd_dkv", "adam8_fused")
+# decode attention (kernel 7) timed at the benchmark's decode cell
+# (mistral-7b.decode-b128: batch 128, H 32 / Hkv 8, D 128, a 768-slot
+# cache), at llama3-1b's serving shape (phase 4: batch 64, D 64, a
+# 384-slot cache) and at batch 4 of the cell's widths over 2048 keys,
+# where the keys split: [B, H, Hkv, D, cache slots, lengths timed]
+DECODE_ATTN_SHAPES = {
+    "mistral-7b.decode-b128": (128, 32, 8, 128, 768, (640, 768)),
+    "llama3-1b": (BATCH, 32, 8, 64, PROMPT + NEW_TOKENS, (256, 384)),
+    "mistral-7b.b4_2k_split": (4, 32, 8, 128, 2048, (2048,)),
+}
+# each timed call reads another layer's cache, at least this many bytes
+# of caches in turn, so that L2 (50 MB) does not hold the next call's K/V
+DECODE_ATTN_ROTATE_BYTES = 200e6
+
 # the designs of the kernels redesigned for Hopper
 DESIGN = {
     "flash_fwd": "persistent grid (a block per SM) over 128-row q tiles, "
@@ -357,6 +390,15 @@ DESIGN = {
                    "division for an all-zero block, the intrinsics "
                    "otherwise; whole-row or unaligned leaves take a "
                    "two-pass row loop in the same kernel",
+    "decode_attn": "a block per (batch row, kv-head, 16 q-heads of the GQA "
+                   "group); K/V read in place through the cache's strides, "
+                   "exactly the filled keys, 64-key tiles in a 3-stage "
+                   "cp.async ring (swizzled for ldmatrix); four warps of 16 "
+                   "keys a tile, S and P V by mma.sync with f32 "
+                   "accumulators, an online softmax each, merged in shared "
+                   "memory; the keys split over blocks (and a combine "
+                   "kernel) where too few blocks stream to fill the "
+                   "bandwidth (split_plan)",
     "rms_norm_fwd": "one warp per row, warps walking rows grid-stride over "
                     "a grid the card holds at once with the next row's "
                     "loads in flight; the row in registers (16-byte loads, "
@@ -655,6 +697,80 @@ def phase_kernels():
               "tol": {"o": FLASH_O_ATOL, "lse": FLASH_LSE_ATOL}, "ok": ok})
         check(ok, f"flash_fwd disagrees with its plain version at "
                   f"{(b, h, hkv, s, d, causal)}")
+
+
+def decode_attn_entry(gen, b, h, hkv, d, slots, length, bw, peak) -> dict:
+    """Kernel 7 at one shape: held to its plain version (at its tile) on
+    layer 0 of the caches, then its time, its plain version's, the parent
+    route's (the grouped einsum over the cell's attn_len view of the
+    cache) and SDPA's on contiguous copies, beside its bound (K and V of
+    ``length`` keys, q and o)."""
+    layer_bytes = b * slots * hkv * d * 2 * 2
+    layers = max(2, math.ceil(DECODE_ATTN_ROTATE_BYTES / layer_bytes))
+    q = torch.randn(b, 1, h, d, device="cuda", generator=gen).bfloat16()
+    kc, vc = (torch.randn(layers, b, slots, hkv, d, device="cuda",
+                          generator=gen).bfloat16() for _ in range(2))
+    before = _kernels.LAUNCHES["decode_attn"]
+    out = decode_attention(q, kc[0], vc[0], length)
+    check(_kernels.LAUNCHES["decode_attn"] == before + 1,
+          "decode_attn counted no launch")
+    ref = decode_attention_plain(q, kc[0], vc[0], length)
+    err = max_err(out, ref)
+    check(err <= FLASH_O_ATOL,
+          f"decode_attn disagrees with its plain version at "
+          f"{(b, h, hkv, d, slots, length)}: {err}")
+    turn = itertools.count()
+
+    def rotate(fn, ks=kc, vs=vc):
+        def call():
+            i = next(turn) % layers
+            return fn(ks[i], vs[i])
+        return call
+
+    # the parent route's view: the length on the cell's decode_block grid
+    attn_len = min(-(-length // 256) * 256, slots)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (t[:, :, :length].transpose(2, 3).contiguous()
+              for t in (kc, vc))
+    nbytes = b * length * hkv * d * 2 * 2 + 2 * q.numel() * 2
+    flops = 4 * b * h * d * length
+    splits, per = split_plan(b * hkv * -(-(h // hkv) // KERNEL_ROWS), length,
+                             torch.cuda.get_device_properties(0)
+                             .multi_processor_count, d)
+    return {
+        "shape": [b, h, hkv, d], "cache_slots": slots, "length": length,
+        "splits": splits, "tiles_per_split": per, "max_abs_err": err,
+        "ms": time_ms(rotate(lambda k, v: decode_attention(q, k, v,
+                                                           length))),
+        "plain_ms": time_ms_eager(
+            rotate(lambda k, v: decode_attention_plain(q, k, v, length)),
+            iters=3, reps=3),
+        **_bound(nbytes, flops, bw, peak),
+        "parent_route_ms": time_ms(rotate(
+            lambda k, v: causal_attention(q, k[:, :attn_len], v[:, :attn_len],
+                                          q_offset=length - 1))),
+        "parent_route_attn_len": attn_len,
+        "library": "scaled_dot_product_attention(enable_gqa=True) on "
+                   "contiguous [B, H, len, D] copies of each layer's cache "
+                   "(the copies not timed)",
+        "library_ms": time_ms(rotate(
+            lambda k, v: torch.nn.functional.scaled_dot_product_attention(
+                qt, k, v, enable_gqa=True), kt, vt)),
+    }
+
+
+def phase_decode_attn(name: str) -> dict:
+    """Kernel 7 at each of DECODE_ATTN_SHAPES."""
+    bw, bf16_peak, _ = measure.peaks(name)
+    gen = torch.Generator("cuda").manual_seed(SEED + 20)
+    out = {}
+    for shape, (b, h, hkv, d, slots, lengths) in DECODE_ATTN_SHAPES.items():
+        out[shape] = [decode_attn_entry(gen, b, h, hkv, d, slots, n, bw,
+                                        bf16_peak) for n in lengths]
+        for entry in out[shape]:
+            emit({"phase": "decode_attn", "cell": shape, **entry})
+        torch.cuda.empty_cache()
+    return out
 
 
 def _flash_bwd_inputs(b, h, hkv, s, d, causal, gen):
@@ -980,7 +1096,7 @@ def phase_generate():
     want = {"flash_fwd": cfg.layers,
             "rms_norm_fwd": (2 * cfg.layers + 1) * forward_calls,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
-            "adam8_fused": 0}
+            "adam8_fused": 0, "decode_attn": cfg.layers * (NEW_TOKENS - 1)}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     emit({"phase": "generate", "preset": "llama3-1b", "layers": cfg.layers,
           "params": cfg.num_params(), "batch": BATCH, "prompt": PROMPT,
@@ -1035,9 +1151,11 @@ def remat_launches(n: int) -> dict:
     and both its norms run twice, the final norm once; one backward each.
     "full" and "dots" replay a layer up to its last needed tensor; "ffn"
     replays the attention half from the layer's input, and the FFN half's
-    backward recomputes its norm from the saved residual."""
+    backward recomputes its norm from the saved residual.  No decode
+    attention: training runs no decode step."""
     return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-            "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1}
+            "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
+            "decode_attn": 0}
 
 
 def run_steps(step, params, opt_state, tokens, steps: int):
@@ -1996,7 +2114,7 @@ def phase_import_llama() -> dict:
     gen_s = time.perf_counter() - t0
     want = {"flash_fwd": n, "rms_norm_fwd": (2 * n + 1) * NEW_TOKENS,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
-            "adam8_fused": 0}
+            "adam8_fused": 0, "decode_attn": n * (NEW_TOKENS - 1)}
     check(launches == want, f"import generate launches {launches}, "
           f"expected {want}")
     check(bool(torch.equal(out, ref)),
@@ -2124,7 +2242,7 @@ def phase_convert_train(family: str) -> dict:
     check(math.isfinite(out["final_loss"])
           and out["final_loss"] < out["first_loss"],
           f"the loss did not fall: {out}")
-    check(all(launches[k] > 0 for k in launches),
+    check(all(launches[k] > 0 for k in launches if k in TRAIN_KERNELS),
           f"convert -> train launched no {launches}")
     emit({"phase": f"convert_train_{family}",
           "seconds": time.perf_counter() - t_phase, "layers": icfg.layers,
@@ -2378,7 +2496,8 @@ def phase_mesh_world1() -> dict:
         want_gen = {"flash_fwd": gcfg.layers,
                     "rms_norm_fwd": (2 * gcfg.layers + 1) * MESH_NEW_TOKENS,
                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                    "rms_norm_bwd": 0, "adam8_fused": 0}
+                    "rms_norm_bwd": 0, "adam8_fused": 0,
+                    "decode_attn": gcfg.layers * (MESH_NEW_TOKENS - 1)}
         check(gen_launches == want_gen,
               f"mesh generate launches {gen_launches}, expected {want_gen}")
     finally:
@@ -3693,7 +3812,7 @@ def phase_dryrun_world1() -> dict:
     for section in ("1", "1b"):
         check(sections[section]["launches"]["adam8_fused"] > 0,
               f"kernel 6 did not launch in dry-run section {section}")
-    check(all(n > 0 for n in sections["1b"]["launches"].values()),
+    check(all(sections["1b"]["launches"][k] > 0 for k in TRAIN_KERNELS),
           f"section 1b launched {sections['1b']['launches']}")
     check(sections["1b"]["drift"] < graft.DRIFT_TOL,
           f"section 1b's kernels drift {sections['1b']['drift']} from the "
@@ -3774,7 +3893,8 @@ def phase_remat_search(batches) -> dict:
 
 def phase_table(name: str, launches: dict, train_launches: dict,
                 adam8: dict, moe_runs: dict, more_launches: dict,
-                ring_runs: dict, mesh_adam8: dict, virtual: dict):
+                ring_runs: dict, mesh_adam8: dict, virtual: dict,
+                decode_attn: dict):
     bw, bf16_peak, f32_peak = measure.peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -3960,6 +4080,16 @@ def phase_table(name: str, launches: dict, train_launches: dict,
                         "per_rank": run["per_rank"], "bound_by": "bytes"}
             for mesh_name, run in virtual.items()},
     })
+    # -- decode attention: the benchmark's decode cell, llama3-1b's serving
+    # shape and a batch small enough to split the keys (phase_decode_attn)
+    rows.append({
+        "name": "decode_attn", "route": "cuda",
+        "source": "tpu_network_operator_torch/ops/csrc/decode_attn.cu",
+        "replaces": "none: the JAX package leaves decode attention to XLA's "
+                    "fusion (tpu_network_operator/ops/attention.py)",
+        "design": DESIGN["decode_attn"],
+        "launches": launches["decode_attn"], "shapes": decode_attn,
+    })
     # each kernel's launches in the import, convert -> train and offload
     # paths, each read just after its own run
     for row in rows:
@@ -3984,6 +4114,9 @@ def main(argv=None) -> int:
     args.add_argument("--pipeline", action="store_true",
                       help="only build the kernels and run the pipeline "
                            "over virtual stages (phase_pipeline_virtual)")
+    args.add_argument("--decode-attn", action="store_true",
+                      help="only build the kernels and check and time the "
+                           "decode-attention kernel (phase_decode_attn)")
     args.add_argument("--remat-search", action="store_true",
                       help="only build the kernels and run the remat sweep "
                            "at tools/remat_search.py's batches 4 and 8 "
@@ -4004,6 +4137,10 @@ def main(argv=None) -> int:
         phase_remat_search(SWEEP_FULL_BATCHES)
         print(smi, flush=True)
         return 0
+    if args.decode_attn:
+        phase_decode_attn(name)
+        print(smi, flush=True)
+        return 0
     if args.adam8_leaves or args.remat_ffn:
         if args.adam8_leaves:
             phase_adam8_leaves(name)
@@ -4012,6 +4149,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     phase_kernels()
+    decode_attn = phase_decode_attn(name)
     phase_kernels_bwd()
     phase_kernels_adam8()
     launches = phase_generate()
@@ -4058,7 +4196,7 @@ def main(argv=None) -> int:
     more_launches["perf_decomp_stages"] = phase_perf_decomp()
     more_launches["remat_search_sweep"] = phase_remat_search(SWEEP_BATCHES)
     phase_table(name, launches, train_launches, adam8, moe_runs,
-                more_launches, ring_runs, mesh_adam8, virtual)
+                more_launches, ring_runs, mesh_adam8, virtual, decode_attn)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

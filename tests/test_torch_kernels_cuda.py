@@ -23,6 +23,7 @@ from tpu_network_operator_torch.models import llama as tllama
 from tpu_network_operator_torch.models import moe as tmoe
 from tpu_network_operator_torch.models import optim8bit as topt
 from tpu_network_operator_torch.ops import _kernels
+from tpu_network_operator_torch.ops import decode_attention as tda
 from tpu_network_operator_torch.ops import flash_attention as tfa
 from tpu_network_operator_torch.ops import norms as tnorms
 
@@ -167,7 +168,8 @@ def test_generate_on_card_matches_cpu_and_counts(cuda):
     assert _kernels.LAUNCHES == {"flash_fwd": cfg.layers,
                                  "rms_norm_fwd": (2 * cfg.layers + 1) * 6,
                                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                 "rms_norm_bwd": 0, "adam8_fused": 0}
+                                 "rms_norm_bwd": 0, "adam8_fused": 0,
+                                 "decode_attn": cfg.layers * 5}
     with torch.inference_mode():
         lg = {dev: tgen.forward_with_cache(
             p, prompt.to(dev), tgen.init_cache(cfg, 2, 134, device=dev), 0,
@@ -177,6 +179,78 @@ def test_generate_on_card_matches_cpu_and_counts(cuda):
     assert rel < 5e-2, rel
     assert out.shape == (2, 134)
     assert int(out.max()) < cfg.vocab_size
+
+
+# -- decode attention ---------------------------------------------------------
+
+
+def _decode_case(gen, b, h, hkv, d, max_len, dtype=torch.bfloat16):
+    """q [B, 1, H, D] and layer 1 of a two-layer [L, B, max_len, Hkv, D]
+    cache pair (the layout ``generate`` hands the kernel)."""
+    q = torch.randn(b, 1, h, d, device="cuda", generator=gen).to(dtype)
+    k, v = (torch.randn(2, b, max_len, hkv, d, device="cuda",
+                        generator=gen).to(dtype) for _ in range(2))
+    return q, k[1], v[1]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16"])
+@pytest.mark.parametrize("b,h,hkv,d,length,split", [
+    # enough blocks: one part; lengths on and off the 64-key tile
+    (40, 32, 8, 128, 640, False), (40, 32, 8, 128, 767, False),
+    (40, 32, 8, 128, 1, False), (72, 32, 8, 64, 385, False),
+    (300, 4, 1, 128, 65, False), (2, 32, 8, 128, 64, False),
+    # few blocks: the key range splits and a second kernel combines
+    (2, 32, 8, 128, 767, True), (2, 32, 8, 128, 2048, True),
+    (2, 16, 8, 64, 1000, True), (1, 8, 8, 128, 4097, True),
+    # R 16 and R 32 (two groups of 16 query heads a kv-head), R 1
+    (4, 32, 2, 128, 300, False), (3, 32, 1, 64, 129, False),
+    (8, 8, 8, 64, 200, False), (1, 32, 1, 128, 3000, True),
+])
+def test_decode_attn_kernel_matches_plain(cuda, dtype, b, h, hkv, d, length,
+                                          split):
+    blocks = b * hkv * -(-(h // hkv) // tda.KERNEL_ROWS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert (tda.split_plan(blocks, length, sms, d)[0] > 1) == split
+    dt = DTYPES[dtype]
+    q, k, v = _decode_case(cuda, b, h, hkv, d, 4200 if length > 800 else 800,
+                           dt)
+    before = _kernels.LAUNCHES["decode_attn"]
+    out = tda.decode_attention(q, k, v, length)
+    assert _kernels.LAUNCHES["decode_attn"] == before + 1
+    # the plain version at the kernel's tile: f32 sums in other orders and
+    # exp2 against exp can flip one rounding of p or of o
+    ref = tda._decode_attention_plain(q, k, v, length,
+                                      block_k=tda.DECODE_TILE)
+    assert out.shape == q.shape and out.dtype == dt
+    torch.testing.assert_close(out, ref, rtol=0,
+                               atol=2e-2 if dtype == "bf16" else 4e-3)
+    # keys past length are never read: NaN there changes nothing
+    k[:, length:] = float("nan")
+    v[:, length:] = float("nan")
+    assert torch.equal(tda.decode_attention(q, k, v, length), out)
+
+
+def test_decode_attn_kernel_refuses(cuda):
+    q, k, v = _decode_case(cuda, 2, 8, 2, 64, 32)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        tda.decode_attention(q.float(), k.float(), v.float(), 3)
+    with pytest.raises(TypeError, match="bfloat16 or float16"):
+        tda.decode_attention(q, k.half(), v.half(), 3)
+    with pytest.raises(ValueError, match="head_dim in"):
+        tda.decode_attention(q[..., :48], k[..., :48], v[..., :48], 3)
+    # head_dim not the unit stride; q 2 bytes off a 16-byte boundary
+    strided = k.transpose(1, 3).contiguous().transpose(1, 3)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        tda.decode_attention(q, strided, v, 3)
+    shifted = torch.empty(q.numel() + 1, device="cuda", dtype=q.dtype)
+    with pytest.raises(ValueError, match="16-byte rows"):
+        tda.decode_attention(shifted[1:].view(q.shape), k, v, 3)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        tda.decode_attention(q, k.cpu(), v, 3)
+    with pytest.raises(ValueError, match="length must be in"):
+        tda.decode_attention(q, k, v, 33)
+    with pytest.raises(ValueError, match="multiple of kv heads"):
+        tda.decode_attention(q[:, :, :3], k, v, 3)
 
 
 # -- backward kernels ---------------------------------------------------------
@@ -335,7 +409,8 @@ def test_train_step_on_card_matches_cpu(cuda):
                 "flash_fwd": 2 * cfg.layers, "flash_bwd_dq": cfg.layers,
                 "flash_bwd_dkv": cfg.layers,
                 "rms_norm_fwd": 4 * cfg.layers + 1,
-                "rms_norm_bwd": 2 * cfg.layers + 1, "adam8_fused": 0}
+                "rms_norm_bwd": 2 * cfg.layers + 1, "adam8_fused": 0,
+                "decode_attn": 0}
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-2 * abs(out["cpu"][0])
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         assert _rel(g.cpu(), r) < 3e-2
@@ -934,7 +1009,7 @@ def test_moe_train_step_on_card_matches_cpu(cuda):
             assert dict(_kernels.LAUNCHES) == {
                 "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
                 "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
-                "adam8_fused": 1}
+                "adam8_fused": 1, "decode_attn": 0}
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-2 * losses["cpu"]
 
 

@@ -13,11 +13,16 @@ axes replicate, as under the reference's generate.
   into it **in place** (the reference's stated intent for its scan carry);
   :func:`forward_with_cache` returns the same dict it was given.
 * Prefill (position 0, queries covering the whole filled prefix, a shape
-  the flash gate takes) runs the flash kernel; every decode step runs the
+  the flash gate takes) runs the flash kernel.  A decode step over a
+  native-dtype cache at head_dim 64 or 128 runs the decode-attention
+  kernel (:mod:`..ops.decode_attention`), which reads exactly the filled
+  prefix of the un-sliced cache in place.  Every other step (an int8
+  cache, another head_dim, several new tokens past position 0) runs the
   plain grouped-einsum attention over the static ``attn_len`` prefix.
 * The decode loop is split into ``decode_block`` segments, each attending
   over one prefix length (the filled length rounded up to the block), so
-  per-token attention work tracks the generated length.
+  per-token attention work on the plain route tracks the generated
+  length.
 * PyTorch runs eagerly: the RoPE tables are computed once per
   :func:`generate` call and handed to every step.
 """
@@ -31,7 +36,8 @@ import torch
 
 from .. import resolve_device, tracing
 from ..ops.attention import causal_attention
-from ..ops.flash_attention import flash_attention
+from ..ops.decode_attention import decode_attention
+from ..ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 from ..ops.flash_attention import use_flash
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_at, rope_angles
@@ -48,6 +54,13 @@ def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
     if not (isinstance(pos, int) and pos == 0 and s == attn_len):
         return False
     return use_flash(s, s, cfg.head_dim)
+
+
+def _decode_kernel_ok(cfg: LlamaConfig, s: int, quantized: bool) -> bool:
+    """The decode-attention route: one new token over a native-dtype
+    cache at a head_dim the kernel is built for; the same on the CPU (its
+    plain version) and the card."""
+    return s == 1 and not quantized and cfg.head_dim in KERNEL_HEAD_DIMS
 
 
 def init_cache(cfg: LlamaConfig, batch: int, max_len: int,
@@ -101,11 +114,12 @@ def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
 
     x: [B, s, H] new tokens at absolute positions [pos, pos + s);
     ck/cv: [B, max_len, Hkv, D] this layer's cache, written in place.
-    ``attn_len`` bounds the filled prefix attention reads.  ``cks``/
-    ``cvs``: per-row-head f32 scales when the cache is int8; fresh rows
-    are quantized on insert and the causal path dequantizes the attended
-    view.  The flash prefill attends over the exact fresh k/v instead, as
-    in the reference."""
+    ``attn_len`` bounds the filled prefix the plain route reads; the
+    decode kernel reads the ``pos + 1`` filled slots of the whole cache.
+    ``cks``/``cvs``: per-row-head f32 scales when the cache is int8; fresh
+    rows are quantized on insert and the causal path dequantizes the
+    attended view.  The flash prefill attends over the exact fresh k/v
+    instead, as in the reference."""
     cfg = lay.cfg
     b, s, _ = x.shape
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
@@ -132,13 +146,15 @@ def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
         # prefix are masked by exactly that, so reading only attn_len rows
         # is a pure work reduction
         lim = ck.shape[1] if attn_len is None else min(attn_len, ck.shape[1])
-        ckv, cvv = ck[:, :lim], cv[:, :lim]
-        if cks is not None:
-            ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
-            cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
-        if _prefill_flash_ok(cfg, pos, s, lim):
+        if _decode_kernel_ok(cfg, s, cks is not None):
+            a = decode_attention(q, ck, cv, pos + 1)
+        elif _prefill_flash_ok(cfg, pos, s, lim):
             a = flash_attention(q, k, v)
         else:
+            ckv, cvv = ck[:, :lim], cv[:, :lim]
+            if cks is not None:
+                ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
+                cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
             a = causal_attention(q, ckv, cvv, q_offset=pos)
     x = x + comm.reduce_from(a.reshape(b, s, -1) @ lay.w(lp["wo"], 1),
                              lay.tp)

@@ -2,8 +2,11 @@
 
 Counterpart of ``tpu_network_operator/ops/attention.py`` (which XLA fuses
 on the TPU; it is not a kernel there, and stays plain PyTorch here).  The
-serving path uses it for every decode step; prefill goes through the flash
-kernel (:mod:`.flash_attention`) when its shape gate passes.
+serving path uses it for the steps no kernel takes: an int8 cache, a head
+dim the kernels are not built for, and several new tokens past position
+0.  Prefill goes through the flash kernel (:mod:`.flash_attention`) when
+its shape gate passes, and a decode step over a native cache through the
+decode kernel (:mod:`.decode_attention`).
 """
 
 from __future__ import annotations
