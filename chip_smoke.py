@@ -11,7 +11,8 @@ Phases, each printing JSON lines; any failure exits non-zero:
    and spills per kernel; a note that ptxas serialized a kernel's
    ``wgmma`` instructions fails the run;
 3. kernels: each kernel, forward and backward, against its plain PyTorch
-   version on the card;
+   version on the card, kernels 1 to 3 under a window at the Mellum2
+   cell's sliding layers' shape too;
 4. generate: greedy ``generate`` of ``llama3-1b`` at full width and depth
    (random bf16 weights from a seeded CUDA generator), batch 64, prompt
    128, 256 new tokens, with the kernels' launch counts read from that run;
@@ -219,6 +220,12 @@ batches, 4 and 8.
 builds the kernels and checks and times only the decode-attention kernel
 (its rows of phase 31).
 
+    python3 chip_smoke.py --flash-cells
+
+builds the kernels and times only kernels 1 to 3 at the benchmark's train
+cells' attention shapes, causal and under the Mellum2 cell's window (the
+window's kernels first held to their plain versions there).
+
 The second-to-last line is ``nvidia-smi``'s ``name, power.limit``; the
 last is ``{"ok": true, "device": {...}}``.  Needs one CUDA GPU and exits
 non-zero without one, printing no result.
@@ -356,6 +363,16 @@ DECODE_ATTN_SHAPES = {
     "mistral-7b.decode-b128": (128, 32, 8, 128, 768, (640, 768)),
     "llama3-1b": (BATCH, 32, 8, 64, PROMPT + NEW_TOKENS, (256, 384)),
     "mistral-7b.b4_2k_split": (4, 32, 8, 128, 2048, (2048,)),
+}
+# kernels 1 to 3 timed at the benchmark's train cells' attention (causal:
+# window 0) and at the Mellum2 cell's (H 32 / Hkv 4: causal on its full
+# layers, the 1,024-key window on its sliding ones): [B, S, H, Hkv, D,
+# window]
+FLASH_CELL_SHAPES = {
+    "mixtral-8x7b-l4.train-8k": (2, 8192, 32, 8, 128, 0),
+    "mistral-7b-l24.train-4k": (2, 4096, 32, 8, 128, 0),
+    "mellum2-l16.train-32k.full": (1, 32768, 32, 4, 128, 0),
+    "mellum2-l16.train-32k.window": (1, 32768, 32, 4, 128, 1024),
 }
 # each timed call reads another layer's cache, at least this many bytes
 # of caches in turn, so that L2 (50 MB) does not hold the next call's K/V
@@ -773,6 +790,99 @@ def phase_decode_attn(name: str) -> dict:
     return out
 
 
+def phase_flash_cells(name: str) -> dict:
+    """Kernels 1 to 3 timed at :data:`FLASH_CELL_SHAPES` beside their
+    bounds: operations at the bf16 peak over the pairs each sees (causal,
+    or the window's band; dQ recomputes S and dP, dK/dV both as well:
+    1.5 and 2 forwards), bytes of its inputs and outputs once.  A window's
+    kernels are first held to their plain versions on the inputs they are
+    timed on (:func:`flash_window_check`).  A tree whose kernels take no
+    window skips the window's rows."""
+    bw, bf16_peak, _ = measure.peaks(name)
+    gen = torch.Generator("cuda").manual_seed(SEED + 21)
+    out = {}
+    for cell, (b, s, h, hkv, d, window) in FLASH_CELL_SHAPES.items():
+        kw = {"window": window} if window else {}
+        q, k, v = _flash_case(b, h, hkv, s, d, gen)
+        do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+        try:
+            o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                          head_dim=2, **kw)
+        except TypeError:
+            emit({"phase": "flash_cells", "cell": cell,
+                  "skipped": "the kernels take no window"})
+            continue
+        if window:
+            flash_window_check(cell, q, k, v, do, window)
+        delta = fa.attention_delta(o.transpose(1, 2), do.transpose(1, 2))
+        bkw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False, **kw)
+        w = window or s
+        pairs = w * (w + 1) // 2 + (s - w) * w
+        fwd = 4 * h * d * b * pairs
+        qb, kvb, st = b * s * h * d * 2, b * s * hkv * d * 2, b * h * s * 4
+        kernels = {
+            "flash_fwd": (lambda: fa._flash_fwd_kernel(
+                q, k, v, causal=True, seq_dim=1, head_dim=2, **kw),
+                fwd, 2 * qb + 2 * kvb + st),
+            "flash_bwd_dq": (lambda: fa._flash_bwd_dq_kernel(
+                q, k, v, do, lse, delta, **bkw),
+                1.5 * fwd, 3 * qb + 2 * kvb + 2 * st),
+            "flash_bwd_dkv": (lambda: fa._flash_bwd_dkv_kernel(
+                q, k, v, do, lse, delta, **bkw),
+                2 * fwd, 2 * qb + 4 * kvb + 2 * st),
+        }
+        rows = {}
+        for kernel, (fn, flops, nbytes) in kernels.items():
+            ms = time_ms(fn, iters=5, reps=7)
+            bound = _bound(nbytes, flops, bw, bf16_peak)
+            rows[kernel] = {"ms": ms, **bound,
+                            "share": bound["bound_ms"] / ms}
+            emit({"phase": "flash_cells", "cell": cell, "kernel": kernel,
+                  "shape": [b, s, h, hkv, d], "window": window,
+                  **rows[kernel]})
+        out[cell] = rows
+        del q, k, v, do, o, lse, delta
+        torch.cuda.empty_cache()
+    return out
+
+
+def flash_window_check(cell, q, k, v, do, window) -> None:
+    """Kernels 1 to 3 under ``window`` ([B, S, H, D] inputs) held to their
+    plain versions at the kernels' tiles on the same inputs: o and lse at
+    FLASH_O_ATOL and FLASH_LSE_ATOL, dq, dk and dv at GRAD_MAX_FRAC and
+    GRAD_REL (the card tests' tolerances).  The plain versions skip the
+    key blocks below the band, so a 32k sequence costs O(S * window)."""
+    o, lse = fa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                  head_dim=2, window=window)
+    t = [x.transpose(1, 2) for x in (q, k, v, do)]
+    ro, rlse = fa._flash_fwd_plain_at_tiles(*t[:3], causal=True,
+                                            window=window)
+    err_o, err_l = max_err(o, ro.transpose(1, 2)), max_err(lse, rlse)
+    del ro, rlse
+    delta = fa.attention_delta(o.transpose(1, 2), t[3])
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False,
+              window=window)
+    outs = (fa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw),
+            *fa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw))
+    refs = fa._flash_bwd_plain_at_tiles(*t, lse, delta, causal=True,
+                                        dq_dtype=torch.bfloat16,
+                                        window=window)
+    res, ok = _grads_ok(outs, [r.transpose(1, 2) for r in refs])
+    ok = ok and err_o <= FLASH_O_ATOL and err_l <= FLASH_LSE_ATOL
+    emit({"phase": "kernels", "kernel": "flash_fwd+bwd (window)",
+          "cell": cell, "shape": [q.shape[0], q.shape[1], q.shape[2],
+                                  k.shape[2], q.shape[3]],
+          "window": window, "max_abs_err_o": err_o,
+          "max_abs_err_lse": err_l, **res,
+          "tol": {"o": FLASH_O_ATOL, "lse": FLASH_LSE_ATOL,
+                  "max_frac": GRAD_MAX_FRAC, "rel_norm": GRAD_REL},
+          "ok": ok})
+    check(ok, f"the window's kernels disagree with their plain versions "
+              f"at {cell}")
+    del o, lse, delta, outs, refs
+    torch.cuda.empty_cache()
+
+
 def _flash_bwd_inputs(b, h, hkv, s, d, causal, gen):
     """q, k, v, a cotangent dO, and the forward kernel's lse and delta."""
     q, k, v = _flash_case(b, h, hkv, s, d, gen)
@@ -869,6 +979,13 @@ def phase_kernels_bwd():
     # (the ring seam's past chunk), D 128 with n_rep 4 and 1, bf16 and f32
     for case in DQ_EDGES:
         dq_edge_case(gen, *case)
+    # the window on a main path: the Mellum2 cell's sliding layers at their
+    # own shape
+    cell = "mellum2-l16.train-32k.window"
+    b, s, h, hkv, d, window = FLASH_CELL_SHAPES[cell]
+    q, k, v = _flash_case(b, h, hkv, s, d, gen)
+    do = torch.randn(q.shape, device="cuda", generator=gen).bfloat16()
+    flash_window_check(cell, q, k, v, do, window)
 
 
 # (b, sq, sk, h, hkv, d, causal, layout, out_f32)
@@ -4117,6 +4234,10 @@ def main(argv=None) -> int:
     args.add_argument("--decode-attn", action="store_true",
                       help="only build the kernels and check and time the "
                            "decode-attention kernel (phase_decode_attn)")
+    args.add_argument("--flash-cells", action="store_true",
+                      help="only build the kernels and time kernels 1 to 3 "
+                           "at the benchmark's train shapes "
+                           "(phase_flash_cells)")
     args.add_argument("--remat-search", action="store_true",
                       help="only build the kernels and run the remat sweep "
                            "at tools/remat_search.py's batches 4 and 8 "
@@ -4139,6 +4260,10 @@ def main(argv=None) -> int:
         return 0
     if args.decode_attn:
         phase_decode_attn(name)
+        print(smi, flush=True)
+        return 0
+    if args.flash_cells:
+        phase_flash_cells(name)
         print(smi, flush=True)
         return 0
     if args.adam8_leaves or args.remat_ffn:

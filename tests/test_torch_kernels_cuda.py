@@ -1208,3 +1208,63 @@ def test_dryrun_world1_repeats_section_1b_bits(cuda):
     assert first["drift"] < graft.DRIFT_TOL
     assert all(n > 0 for n in first["launches"].values()), first["launches"]
     assert runs[0]["lines"][-1] == graft.OK_LINE
+
+
+@pytest.mark.parametrize("b,s,h,hkv,d,window", [
+    (1, 8192, 32, 4, 128, 1024),   # the Mellum2 cell's sliding layers
+    (1, 1000, 8, 2, 64, 200),      # a ragged last tile, window off the tile
+    (2, 512, 4, 4, 128, 129),      # a band edge one key past a tile
+    (1, 384, 8, 1, 64, 64),        # a window under a forward tile
+    (1, 640, 4, 2, 128, 3),        # the diagonal and two keys below it
+])
+def test_flash_window_kernels_match_plain(cuda, b, s, h, hkv, d, window):
+    q, k, v = _qkv(cuda, b, s, s, h, hkv, d)
+    do = torch.randn(q.shape, device="cuda", generator=cuda).bfloat16()
+    o, lse = tfa._flash_fwd_kernel(q, k, v, causal=True, seq_dim=1,
+                                   head_dim=2, window=window)
+    t = [x.transpose(1, 2) for x in (q, k, v, do)]
+    ro, rlse = tfa._flash_fwd_plain_at_tiles(*t[:3], causal=True,
+                                             window=window)
+    torch.testing.assert_close(o, ro.transpose(1, 2), rtol=0, atol=2e-2)
+    torch.testing.assert_close(lse, rlse, rtol=0, atol=1e-4)
+    delta = tfa.attention_delta(o.transpose(1, 2), do.transpose(1, 2))
+    kw = dict(causal=True, seq_dim=1, head_dim=2, out_f32=False,
+              window=window)
+    dq = tfa._flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
+    dk, dv = tfa._flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
+    refs = tfa._flash_bwd_plain_at_tiles(*t, lse, delta, causal=True,
+                                         dq_dtype=torch.bfloat16,
+                                         window=window)
+    for name, out, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), refs):
+        _assert_grad_close(out, ref.transpose(1, 2), name)
+
+
+def test_flash_window_refused_without_causal(cuda):
+    q, k, v = _qkv(cuda, 1, 128, 128, 2, 1, 64)
+    with pytest.raises(ValueError, match="window"):
+        tfa.flash_attention(q, k, v, causal=False, window=16)
+
+
+@pytest.mark.parametrize("rows,experts,h,f", [(32768, 64, 2304, 896),
+                                              (1000, 8, 256, 128)])
+def test_grouped_mm_matches_per_expert_loop(cuda, rows, experts, h, f):
+    """The dropless route's grouped GEMM (one ``torch._grouped_mm``) against
+    one ``mm`` an expert, forward and both gradients, with uneven groups
+    and an empty one."""
+    from tpu_network_operator_torch.ops import grouped_gemm as tgg
+
+    expert = torch.randint(0, experts, (rows,), device="cuda", generator=cuda)
+    counts = torch.bincount(expert.masked_fill(expert == 1, 0),
+                            minlength=experts)
+    ends = torch.cumsum(counts, 0).to(torch.int32)
+    x = torch.randn(rows, h, device="cuda", generator=cuda).bfloat16()
+    w = (torch.randn(experts, h, f, device="cuda", generator=cuda)
+         / h ** 0.5).bfloat16()
+    gy = torch.randn(rows, f, device="cuda", generator=cuda).bfloat16()
+    got, want = [], []
+    for fn, out in ((tgg.grouped_mm, got), (tgg._grouped_mm_plain, want)):
+        xs, ws = x.clone().requires_grad_(), w.clone().requires_grad_()
+        y = fn(xs, ws, ends)
+        out.extend([y, *torch.autograd.grad(y, (xs, ws), gy)])
+    for name, a, r in zip(("y", "dx", "dw"), got, want):
+        _assert_grad_close(a, r, name)

@@ -39,8 +39,8 @@ from typing import Any, Dict, Iterator, Mapping, Optional
 import torch
 
 from .. import resolve_device
-from .llama import LlamaConfig, Params
-from .moe import MoEConfig
+from .llama import HybridLlamaConfig, LlamaConfig, Params
+from .moe import HybridMoEConfig, MoEConfig
 
 # transformers' class defaults (LlamaConfig / MixtralConfig) for the keys
 # the importers read: a config.json lists only the keys that differ from
@@ -422,8 +422,9 @@ def cfg_from_json(text: str):
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"cfg.json: unknown dtype {d['dtype']!r}")
     d["dtype"] = dtype
+    hybrid = "layer_types" in d
     if fam == "moe":
-        return MoEConfig(**d)
+        return (HybridMoEConfig if hybrid else MoEConfig)(**d)
     d["rope_scaling"] = LlamaConfig.rope_scaling_from(d.get("rope_scaling"))
-    return LlamaConfig(**d)
+    return (HybridLlamaConfig if hybrid else LlamaConfig)(**d)
 

@@ -40,9 +40,10 @@ from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
 from ..ops.flash_attention import use_flash
 from ..ops.norms import rms_norm
-from ..ops.rope import apply_rope_at, rope_angles
+from ..ops.rope import apply_rope_at
 from ..parallel import comm
-from .llama import Layout, LlamaConfig, Params, unbind_layers
+from .llama import (Layout, LlamaConfig, Params, check_no_window,
+                    rope_tables, unbind_layers)
 
 
 def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
@@ -186,8 +187,7 @@ def forward_with_cache(
     max_len = cache["k"].shape[2]
     x = lay.whole(params["embed"])[tokens].to(cfg.dtype)
     if rope is None:
-        rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,
-                           scaling=cfg.rope_scaling_dict, device=x.device)
+        rope = rope_tables(cfg, max_len, x.device)[0]
     cos, sin = rope
     quant = "k_scale" in cache
     for i, lp in enumerate(unbind_layers(params)):
@@ -279,13 +279,13 @@ def generate(
         raise ValueError(
             f"max_len {max_len} < prompt {s} + new {max_new_tokens}"
         )
+    check_no_window(cfg, "serving (the KV cache keeps no window)")
     # serving runs no ring: a seq axis replicates
     lay = Layout(dataclasses.replace(cfg, seq_parallel=False), mesh,
                  serving=True)
     cache = init_cache(cfg, b, max_len, kv_dtype, device=device,
                        kv_heads=lay.kv_heads)
-    rope = rope_angles(max_len, cfg.head_dim, cfg.rope_theta,
-                       scaling=cfg.rope_scaling_dict, device=device)
+    rope = rope_tables(cfg, max_len, device)[0]
     # prefill attends over its own keys only, not the whole buffer
     with tracing.span("generate.prefill"):
         logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,

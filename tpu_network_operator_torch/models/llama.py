@@ -7,6 +7,14 @@ parameter layout is the reference's, so weights move between the two
 packages by name: a plain dict whose layer leaves are stacked ``[L, ...]``
 and whose projections are ``W[in, out]`` applied as ``x @ W``.  The layers
 run in a Python loop over the stacked leaves, unbound once per forward.
+
+Both families (this one and ``models/moe.py``) also run the geometry of
+hybrid-attention models (:class:`HybridLlamaConfig`, ``HybridMoEConfig``):
+an explicit head dim, a per-layer attention type (``layer_types``: full
+causal attention, or a sliding window of ``sliding_window`` keys) and a
+RoPE for each type (``rope_parameters``, as the published configs name
+them).  The plain configs keep the reference's fields: every layer full
+attention under the one RoPE of ``rope_theta`` and ``rope_scaling``.
 """
 
 from __future__ import annotations
@@ -19,7 +27,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, tracing
 from ..ops import flash_attention as fa
 from ..ops.attention import causal_attention, repeat_kv
 from ..ops.norms import rms_norm
@@ -29,6 +37,86 @@ from ..parallel.ring import _gqa_repeat_factor, make_ring_attn_fn
 from . import training
 
 Params = Dict[str, Any]
+
+FULL, SLIDING = "full_attention", "sliding_attention"
+
+
+def freeze_rope_parameters(params) -> Tuple:
+    """A ``rope_parameters`` mapping ({layer type: {key: value}}) in the
+    hashable stored form: sorted (type, sorted items) pairs."""
+    if not params:
+        return ()
+    if not isinstance(params, Mapping):
+        params = {t: dict(items) for t, items in params}
+    return tuple(sorted((t, tuple(sorted(dict(spec).items())))
+                        for t, spec in params.items()))
+
+
+@dataclass(frozen=True)
+class Hybrid:
+    """The fields a hybrid-attention config adds to its family's
+    (``HybridLlamaConfig``, ``moe.HybridMoEConfig``)."""
+
+    # the head dim where the published config gives one that differs from
+    # hidden / heads; 0 = hidden // heads.  Read via head_dim
+    explicit_head_dim: int = 0
+    # per layer, FULL or SLIDING (empty: every layer FULL); SLIDING layers
+    # see the last sliding_window keys of each query
+    layer_types: Tuple[str, ...] = ()
+    sliding_window: int = 0
+    # per layer type, its RoPE ({type: {rope_type, rope_theta, ...}}, the
+    # published rope_parameters) in freeze_rope_parameters' form; a type
+    # not named takes rope_theta (and a dense config's rope_scaling)
+    rope_parameters: Tuple = ()
+
+    def __post_init__(self):
+        check_geometry(self)
+
+    @property
+    def head_dim(self) -> int:
+        return self.explicit_head_dim or self.hidden // self.heads
+
+
+def check_geometry(cfg) -> None:
+    """The hybrid-attention fields of a config, normalised in place
+    (lists read from JSON become tuples) and validated."""
+    object.__setattr__(cfg, "layer_types", tuple(cfg.layer_types))
+    object.__setattr__(cfg, "rope_parameters",
+                       freeze_rope_parameters(cfg.rope_parameters))
+    if cfg.layer_types and len(cfg.layer_types) != cfg.layers:
+        raise ValueError(f"layer_types names {len(cfg.layer_types)} layers, "
+                         f"the config has {cfg.layers}")
+    unknown = set(cfg.layer_types) - {FULL, SLIDING}
+    if unknown:
+        raise ValueError(f"unknown layer types {sorted(unknown)}; the port "
+                         f"runs {FULL!r} and {SLIDING!r}")
+    if SLIDING in cfg.layer_types and cfg.sliding_window <= 0:
+        raise ValueError(f"{SLIDING!r} layers need sliding_window > 0")
+
+
+def layer_windows(cfg) -> List[int]:
+    """Each layer's attention window: 0 for full causal attention, else
+    ``cfg.sliding_window`` keys (a plain config: every layer 0)."""
+    types = getattr(cfg, "layer_types", ()) or (FULL,) * cfg.layers
+    return [cfg.sliding_window if t == SLIDING else 0 for t in types]
+
+
+def rope_tables(cfg, seq_len: int, device) -> Dict[int, Tuple[torch.Tensor,
+                                                            torch.Tensor]]:
+    """(cos, sin) of every window the layers use (0: full attention),
+    each from its layer type's ``rope_parameters`` entry, else from
+    ``rope_theta`` and the config's ``rope_scaling`` (if it has one)."""
+    specs = {t: dict(items) for t, items in getattr(cfg, "rope_parameters",
+                                                    ())}
+    scaling = getattr(cfg, "rope_scaling_dict", None)
+    out = {}
+    for w in sorted(set(layer_windows(cfg))):
+        spec = dict(specs.get(SLIDING if w else FULL, {}))
+        theta = spec.pop("rope_theta", cfg.rope_theta)
+        out[w] = rope_angles(seq_len, cfg.head_dim, theta,
+                             scaling=spec or scaling, device=device,
+                             max_positions=cfg.max_seq)
+    return out
 
 
 @dataclass(frozen=True)
@@ -129,6 +217,11 @@ class LlamaConfig:
 
 
 # -- parameters ---------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class HybridLlamaConfig(Hybrid, LlamaConfig):
+    """A dense config with the hybrid-attention fields (:class:`Hybrid`)."""
 
 
 def init_weight(shape, fan_in: int, dtype: torch.dtype,
@@ -313,13 +406,21 @@ class Layout:
     through :mod:`..parallel.pipeline`, whose stages each hold a layout
     with ``pipeline_stage`` (the sub-mesh of one pipe coordinate: every
     group here joins ranks that share it); the plain train step refuses a
-    pipe axis.  The MoE's layout (``models/moe.py``) adds the experts."""
+    pipe axis.  The MoE's layout (``models/moe.py``) adds the experts.
+
+    Sliding-window layers run their attention on the whole local sequence
+    (:func:`attention`): a windowed config refuses ring and Ulysses
+    attention and pipeline stages (:func:`check_no_window`)."""
 
     def __init__(self, cfg, mesh=None, attn_fn=None, serving: bool = False,
                  pipeline_stage: bool = False,
                  seq_parallel: Optional[bool] = None):
         self.cfg, self.mesh = cfg, mesh
         self.attn = attn_fn or functools.partial(attention, cfg)
+        if attn_fn is not None:
+            check_no_window(cfg, "ring or Ulysses attention")
+        if pipeline_stage:
+            check_no_window(cfg, "a pipeline stage")
         if mesh is None:
             self.fsdp = self.tp = self.sp = None
             self.heads, self.kv_heads, self.kv_rep = cfg.heads, cfg.kv_heads, 1
@@ -352,6 +453,7 @@ class Layout:
             seq_parallel = getattr(cfg, "seq_parallel", False)
         sp = seq_parallel and n > 1
         if sp and attn_fn is None:
+            check_no_window(cfg, "ring attention")
             self.attn = make_ring_attn_fn(mesh)
         self.seq_split = n > 1 and attn_fn is not None and not sp
         self.seq_shards = n if sp else 1
@@ -425,6 +527,16 @@ class Layout:
         return grads
 
 
+def check_no_window(cfg, what: str) -> None:
+    """Raise where a config with sliding-window layers meets a path that
+    takes no window."""
+    if any(layer_windows(cfg)):
+        raise ValueError(
+            f"sliding-window attention (window {cfg.sliding_window}) is not "
+            f"supported under {what}: the window runs on the whole local "
+            "sequence only")
+
+
 def unbind_layers(params: Params) -> List[Dict[str, torch.Tensor]]:
     """Every layer's slice of the stacked leaves, from one ``unbind`` per
     leaf: its backward is one stack of the layer gradients, where indexing
@@ -437,18 +549,21 @@ def unbind_layers(params: Params) -> List[Dict[str, torch.Tensor]]:
 # -- forward ------------------------------------------------------------------
 
 
-def attention(cfg: LlamaConfig, q, k, v) -> torch.Tensor:
+def attention(cfg: LlamaConfig, q, k, v, window: int = 0) -> torch.Tensor:
     """Flash (kernel on CUDA, its plain version on CPU) where
     :func:`..ops.flash_attention.use_flash` routes the shape to it, plain
-    causal attention otherwise."""
+    causal attention otherwise; ``window`` > 0 narrows either to the
+    sliding window."""
     if fa.use_flash(q.shape[1], k.shape[1], cfg.head_dim):
-        return fa.flash_attention(q, k, v)
-    return causal_attention(q, k, v)
+        return fa.flash_attention(q, k, v, window=window)
+    return causal_attention(q, k, v, window=window)
 
 
-def _attn_half(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
+def _attn_half(lay: Layout, cos, sin, x, lp, window: int = 0) -> torch.Tensor:
     """The attention half of a block: the post-attention residual
-    (the reference's ``resid_mid``).  x: [B, S, H]."""
+    (the reference's ``resid_mid``).  x: [B, S, H].  ``window``: the
+    layer's sliding window (0: full attention); the attention itself runs
+    inside the span ``attn.window`` or ``attn.full``."""
     cfg = lay.cfg
     y = rms_norm(x, lp["ln_attn"], cfg.rms_eps)
     b, s, _ = y.shape
@@ -460,16 +575,17 @@ def _attn_half(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
     k = apply_rope(k, cos, sin, lay.seq_index * s)
     if lay.seq_split:
         q, k, v = (comm.split(t, lay.sp, 1) for t in (q, k, v))
-    a = lay.attn(q, k, v)
+    with tracing.span("attn.window" if window else "attn.full"):
+        a = attention(cfg, q, k, v, window) if window else lay.attn(q, k, v)
     if lay.seq_split:
         a = comm.gather(a, lay.sp, 1)
     out = a.reshape(b, s, -1) @ lay.w(lp["wo"], 1)
     return x + comm.reduce_from(out, lay.tp)
 
 
-def _layer(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
+def _layer(lay: Layout, cos, sin, x, lp, window: int = 0) -> torch.Tensor:
     """One transformer block.  x: [B, S, H]; lp: this layer's params."""
-    x = _attn_half(lay, cos, sin, x, lp)
+    x = _attn_half(lay, cos, sin, x, lp, window)
     y = comm.copy_to(rms_norm(x, lp["ln_mlp"], lay.cfg.rms_eps), lay.tp)
     gate = y @ lay.w(lp["w_gate"], 0)
     up = y @ lay.w(lp["w_up"], 0)
@@ -477,7 +593,7 @@ def _layer(lay: Layout, cos, sin, x, lp) -> torch.Tensor:
     return x + comm.reduce_from(out, lay.tp)
 
 
-def _remat_block(lay: Layout, cos, sin):
+def _remat_block(lay: Layout, cos, sin, window: int = 0):
     """A block under ``cfg.remat_policy``.  "ffn" / "ffn_lite" keep the
     reference's named tensors: the attention half is recomputed from the
     block's input, and the FFN half saves its input (``resid_mid``) and
@@ -489,10 +605,10 @@ def _remat_block(lay: Layout, cos, sin):
     cfg = lay.cfg
     policy = cfg.remat_policy
     if policy not in training.SAVED_FFN:
-        return training.remat(functools.partial(_layer, lay, cos, sin),
-                              policy)
-    attn = training.remat(functools.partial(_attn_half, lay, cos, sin),
-                          "full")
+        return training.remat(
+            functools.partial(_layer, lay, cos, sin, window=window), policy)
+    attn = training.remat(
+        functools.partial(_attn_half, lay, cos, sin, window=window), "full")
     stash = training.HostStash() if policy == "ffn_offload" else None
 
     def block(x, lp):
@@ -513,15 +629,13 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
     lay = layout or Layout(cfg)
     x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
     x = x.to(cfg.dtype)
-    cos, sin = rope_angles(tokens.shape[1] * lay.seq_shards, cfg.head_dim,
-                           cfg.rope_theta, scaling=cfg.rope_scaling_dict,
-                           device=x.device)
-    if cfg.remat and torch.is_grad_enabled():
-        block = _remat_block(lay, cos, sin)
-    else:
-        block = functools.partial(_layer, lay, cos, sin)
-    for lp in unbind_layers(params):
-        x = block(x, lp)
+    tables = rope_tables(cfg, tokens.shape[1] * lay.seq_shards, x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    blocks = {w: _remat_block(lay, *t, w) if remat
+              else functools.partial(_layer, lay, *t, window=w)
+              for w, t in tables.items()}
+    for lp, w in zip(unbind_layers(params), layer_windows(cfg)):
+        x = blocks[w](x, lp)
     return rms_norm(x, params["ln_final"], cfg.rms_eps)
 
 

@@ -20,6 +20,16 @@ the reference's dispatch constraint ``P("expert", ("data", "fsdp"))``
 leaves them: each routes its rows in full, runs only its own experts on
 its slice of ``dispatch`` / ``combine``, and the partial outputs are
 summed over expert x tensor.
+
+A :class:`HybridMoEConfig` of ``routing="dropless"``
+(:func:`_dropless_ffn`) routes every top-k assignment instead, with no
+capacity: the assignments are sorted by expert, each expert's run of
+gathered rows goes through its three products as grouped GEMMs
+(:mod:`..ops.grouped_gemm`), and each token's k outputs are summed back
+weighted by their gates.  It runs on one device
+or a mesh without an ``expert`` axis.  That config also takes the dense
+model's hybrid geometry (explicit head dim, per-layer sliding windows,
+per-type RoPE; ``models/llama.py``).
 """
 
 from __future__ import annotations
@@ -32,17 +42,22 @@ from typing import Optional, Tuple
 import torch
 
 from .. import resolve_device, tracing
+from ..ops.grouped_gemm import grouped_mm
 from ..ops.norms import rms_norm
-from ..ops.rope import rope_angles
 from ..parallel import comm
 from . import llama, training
 from .llama import (  # noqa: F401  (params_from_jax: the weight bridge)
+    Hybrid,
     Params,
     init_weight,
+    layer_windows,
     params_from_jax,
+    rope_tables,
     shard_leaf,
     unbind_layers,
 )
+
+ROUTINGS = ("capacity", "dropless")
 
 
 @dataclass(frozen=True)
@@ -119,6 +134,26 @@ class MoEConfig:
             ffn=128, experts=4, experts_per_token=2, max_seq=128,
             remat=False,
         )
+
+
+@dataclass(frozen=True)
+class HybridMoEConfig(Hybrid, MoEConfig):
+    """A MoE config with the hybrid-attention fields
+    (:class:`.llama.Hybrid`) and the routing: "capacity" (GShard capacity
+    routing, ``capacity_factor``, drops) or "dropless" (every assignment
+    routed, grouped expert GEMMs)."""
+
+    routing: str = "capacity"
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.routing not in ROUTINGS:
+            raise ValueError(f"unknown routing {self.routing!r}; choose "
+                             f"from {ROUTINGS}")
+
+
+def routing(cfg) -> str:
+    return getattr(cfg, "routing", "capacity")
 
 
 # -- parameters ---------------------------------------------------------------
@@ -255,6 +290,13 @@ class Layout(llama.Layout):
     reference's pipeline does."""
 
     def __init__(self, cfg: MoEConfig, mesh=None, attn_fn=None, **kw):
+        if routing(cfg) == "dropless" and mesh is not None \
+                and mesh.size("expert") > 1:
+            raise ValueError(
+                f"dropless routing runs its experts on one rank: a mesh "
+                f"with an 'expert' axis of {mesh.size('expert')} needs the "
+                "all-to-all exchange it does not have (routing='capacity' "
+                "shards the experts)")
         self.experts = expert_range(cfg, mesh)
         super().__init__(cfg, mesh, attn_fn, **kw)
         if mesh is None:
@@ -329,6 +371,98 @@ def route(probs: torch.Tensor, k: int,
     return dispatch, combine
 
 
+def _sum_copies(x: torch.Tensor, index: torch.Tensor, k: int) -> torch.Tensor:
+    """Rows ``x[index]`` summed k at a time, in f32, back in x's dtype."""
+    rows = x[index].reshape(-1, k, x.shape[-1])
+    return rows.sum(1, dtype=torch.float32).to(x.dtype)
+
+
+class _Spread(torch.autograd.Function):
+    """Each token's row copied to the sorted rows of its k assignments:
+    ``x[src]``.  The backward gathers each token's k rows' gradients back
+    through ``where`` (src's inverse: token t's copies sit at
+    where[t * k:(t + 1) * k]) and sums them in f32: no scatter, so no
+    atomics and no sort of the indices."""
+
+    @staticmethod
+    def forward(ctx, x, src, where, k: int):
+        ctx.save_for_backward(where)
+        ctx.k = k
+        return x[src]
+
+    @staticmethod
+    def backward(ctx, g):
+        (where,) = ctx.saved_tensors
+        return _sum_copies(g, where, ctx.k), None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """:class:`_Spread`'s transpose: each token's k sorted rows gathered
+    through ``where`` and summed in f32; the backward copies each token's
+    gradient to its k rows (``g[src]``)."""
+
+    @staticmethod
+    def forward(ctx, rows, where, src, k: int):
+        ctx.save_for_backward(src)
+        return _sum_copies(rows, where, k)
+
+    @staticmethod
+    def backward(ctx, g):
+        (src,) = ctx.saved_tensors
+        return g[src], None, None, None
+
+
+def _dropless_ffn(cfg: MoEConfig, lp: Params, y: torch.Tensor,
+                  lay: Layout) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dropless sparse FFN: y [B, S, h] -> ([B, S, h], aux loss).
+
+    The f32 router softmax over all experts, :func:`top_k_experts`, the k
+    gates renormalised; the B·S·k assignments stably sorted by expert
+    (``moe.permute``: the sort and the gather of each assignment's row);
+    the three expert products as grouped GEMMs over the experts' runs, the
+    SwiGLU and each row weighted by its gate before the down product,
+    which is linear in the row (``moe.experts``); each token's k outputs
+    gathered back and summed (``moe.unpermute``).  The Switch aux loss
+    counts every assignment in the dispatched fraction.  While a profiler
+    records, the forward adds the busiest expert's assignments to
+    ``moe.load_max``."""
+    b, s, h = y.shape
+    k, e = cfg.experts_per_token, cfg.experts
+    with tracing.span("moe.route"):
+        probs = torch.softmax(y.float() @ lp["router"], dim=-1)  # [B,S,E]
+        expert = top_k_experts(probs.detach(), k).reshape(-1)     # [B*S*k]
+        gate = comm.copy_to(probs, lay.et).reshape(b * s, e).gather(
+            -1, expert.reshape(b * s, k))
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        # each expert's assignments [E], counted on the device (bincount
+        # would read the largest id on the host first)
+        counts = expert.new_zeros(e).index_add_(0, expert,
+                                                torch.ones_like(expert))
+        sums = torch.stack([counts.float(), probs.sum((0, 1))])    # [2,E]
+        frac, mean_probs = comm.psum(sums, lay.batch) / (
+            b * lay.batch_shards * s)
+        aux = e * (frac * mean_probs).sum()
+        tracing.count("moe.load_max", lambda: counts.max())
+    with tracing.span("moe.permute"):
+        order = torch.argsort(expert, stable=True)   # sorted row -> assignment
+        where = torch.empty_like(order)              # assignment -> sorted row
+        where[order] = torch.arange(order.numel(), device=order.device)
+        src = order // k                             # sorted row -> token
+        rows = _Spread.apply(comm.copy_to(y, lay.et).reshape(b * s, h), src,
+                             where, k)
+        ends = torch.cumsum(counts, 0).to(torch.int32)
+    with tracing.span("moe.experts"):
+        hid = torch.nn.functional.silu(
+            grouped_mm(rows, lay.w(lp["w_gate"], 1), ends)
+        ) * grouped_mm(rows, lay.w(lp["w_up"], 1), ends)
+        hid = hid * gate.reshape(-1)[order, None].to(hid.dtype)
+        out = grouped_mm(hid, lay.w(lp["w_down"], 2), ends)
+    with tracing.span("moe.unpermute"):
+        y_out = _Combine.apply(out, where, src, k).reshape(b, s, h)
+        y_out = comm.reduce_from(y_out, lay.et)
+    return y_out, aux
+
+
 def _moe_ffn(cfg: MoEConfig, lp: Params, y: torch.Tensor,
              layout: Optional[Layout] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -344,8 +478,11 @@ def _moe_ffn(cfg: MoEConfig, lp: Params, y: torch.Tensor,
     the aux loss see ``probs`` directly, whole on every rank.  The aux
     loss's two [E] means are over the global batch: the ranks' sums are
     added over data x fsdp (:func:`..parallel.comm.psum`) before their
-    product."""
+    product.  A :class:`HybridMoEConfig` of routing "dropless" takes
+    :func:`_dropless_ffn`."""
     lay = layout or Layout(cfg)
+    if routing(cfg) == "dropless":
+        return _dropless_ffn(cfg, lp, y, lay)
     b, s, _ = y.shape
     with tracing.span("moe.route"):
         probs = torch.softmax(y.float() @ lp["router"], dim=-1)  # [B,S,E]
@@ -407,10 +544,11 @@ def ffn_over_expert_shards(cfg: MoEConfig, lp: Params, y: torch.Tensor,
     return out, aux
 
 
-def _layer(lay: Layout, cos, sin, x,
-           lp) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One MoE transformer block.  x: [B, S, H] -> (x', aux)."""
-    x = llama._attn_half(lay, cos, sin, x, lp)
+def _layer(lay: Layout, cos, sin, x, lp,
+           window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One MoE transformer block.  x: [B, S, H] -> (x', aux);
+    ``window``: the layer's sliding window (0: full attention)."""
+    x = llama._attn_half(lay, cos, sin, x, lp, window)
     y = rms_norm(x, lp["ln_mlp"], lay.cfg.rms_eps)
     ff, aux = _moe_ffn(lay.cfg, lp, y, lay)
     return x + ff, aux
@@ -430,14 +568,14 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
     lay = layout or Layout(cfg)
     x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
     x = x.to(cfg.dtype)
-    cos, sin = rope_angles(tokens.shape[1], cfg.head_dim, cfg.rope_theta,
-                           device=x.device)
-    block = functools.partial(_layer, lay, cos, sin)
-    if cfg.remat and torch.is_grad_enabled():
-        block = training.remat(block, cfg.remat_policy)
+    blocks = {}
+    for w, (cos, sin) in rope_tables(cfg, tokens.shape[1], x.device).items():
+        blocks[w] = functools.partial(_layer, lay, cos, sin, window=w)
+        if cfg.remat and torch.is_grad_enabled():
+            blocks[w] = training.remat(blocks[w], cfg.remat_policy)
     auxes = []
-    for lp in unbind_layers(params):
-        x, aux = block(x, lp)
+    for lp, w in zip(unbind_layers(params), layer_windows(cfg)):
+        x, aux = blocks[w](x, lp)
         auxes.append(aux)
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
     return x, torch.stack(auxes).mean()

@@ -59,11 +59,11 @@ _SIGNATURES = {
     "tpunet_rms_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _P],
     "tpunet_rms_norm_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "tpunet_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I]
-    + [_LL] * 12 + [_F, _I, _P],
+    + [_LL] * 12 + [_F, _I, _I, _P],
     "tpunet_flash_bwd_dq": [_P] * 7 + [_I] * 6 + [_LL] * 15
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _P],
     "tpunet_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _P],
     "tpunet_adam8_fused": [_P, _I] + [_F] * 9 + [_P],
     "tpunet_decode_attn": [_P] * 6 + [_I] * 7 + [_LL] * 10 + [_F, _I, _P],
 }

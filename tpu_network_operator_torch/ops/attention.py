@@ -36,10 +36,12 @@ def causal_attention(
     *,
     q_offset: int = 0,
     mask: Optional[torch.Tensor] = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """Causal (optionally masked) attention with an f32 softmax.
 
-    Query i attends keys ``<= q_offset + i``.  GQA through a grouped
+    Query i attends keys ``<= q_offset + i`` (and, with ``window`` > 0,
+    above ``q_offset + i - window``).  GQA through a grouped
     einsum, not :func:`repeat_kv`: expanding the heads would multiply the
     K/V bytes read by n_rep, every decode step.  The score product runs in
     the input dtype and is then widened to f32, and the probabilities are
@@ -54,7 +56,10 @@ def causal_attention(
 
     sk = k.shape[1]
     rows = torch.arange(sq, device=q.device)[:, None] + q_offset
-    allowed = rows >= torch.arange(sk, device=q.device)[None, :]
+    cols = torch.arange(sk, device=q.device)[None, :]
+    allowed = rows >= cols
+    if window:
+        allowed = allowed & (rows - cols < window)
     if mask is not None:
         allowed = allowed & mask
     logits = logits.masked_fill(~allowed, NEG_INF)

@@ -6,7 +6,8 @@
 // Same function, from the forward's f32 log-sum-exp (lse) and
 // delta = rowsum(dO * O) (f32):
 //   P  = exp(S - lse) with S = bf16(q * scale) K^T, masked causally (row i
-//        sees key j iff i >= j),
+//        sees key j iff i >= j) and by an optional sliding window (and
+//        iff i - window < j; the key tiles below the band are skipped),
 //   dP = dO V^T,  dS = P * (dP - delta),  dQ = scale * bf16(dS) K,
 // with bf16 tensor-core operands and f32 accumulation; dQ in bf16, or in
 // f32 for the ring seam's chunks.  GQA reads kv-head h / (H / Hkv) with no
@@ -120,18 +121,21 @@ __device__ __forceinline__ void issue_dq(float (&dq)[D / 2], const uint32_t (&ds
 }
 
 // what the mask needs: the block's first query row, this thread's first
-// row (its second is 8 below), its lane, Sk and causality
+// row (its second is 8 below), its lane, Sk, causality and the window
+// (0: none)
 struct Rows {
-  int q0, row, lane, Sk, causal;
+  int q0, row, lane, Sk, causal, window;
 };
 
 // dS = P (dP - delta) of keys [k0, k0 + N) with P = exp(S - lse), from S
 // and dP, which it only reads (ptxas serializes wgmmas around registers
 // that other instructions write while one runs), packed to bf16 pairs as
 // the A fragments of dQ += dS K.  nlse: this thread's two rows' -lse *
-// log2 e; delta: theirs.  kMask: the tile may hold a key past Sk or above
-// the diagonal.
-template <bool kMask, int N>
+// log2 e; delta: theirs.  kMask: the tile may hold a key past Sk, above
+// the diagonal or below the window's band; kWindow: the kernel takes a
+// window (a separate instantiation: the causal kernel's code is the one it
+// had without windows).
+template <bool kMask, bool kWindow, int N>
 __device__ __forceinline__ void ds_tile(const float (&sc)[N / 2], const float (&dp)[N / 2],
                                         uint32_t (&ds)[N / 4], const float (&nlse)[2],
                                         const float (&delta)[2], const Rows& rows, int k0) {
@@ -144,29 +148,36 @@ __device__ __forceinline__ void ds_tile(const float (&sc)[N / 2], const float (&
       p[e] = ex2_approx(fmaf(sc[i + e], kLog2e, nlse[r]));
       if constexpr (kMask) {
         const int col = k0 + (i / 4) * 8 + (rows.lane % 4) * 2 + e;
-        if (col >= rows.Sk || (rows.causal && col > rows.row + 8 * r)) p[e] = 0.f;
+        const int row = rows.row + 8 * r;
+        if (col >= rows.Sk || (rows.causal && col > row) ||
+            (kWindow && col <= row - rows.window)) {
+          p[e] = 0.f;
+        }
       }
     }
     ds[i / 2] = pack_bf16(p[0] * (dp[i] - delta[r]), p[1] * (dp[i + 1] - delta[r]));
   }
 }
 
-template <int N>
+template <bool kWindow, int N>
 __device__ __forceinline__ void tile_ds(const float (&sc)[N / 2], const float (&dp)[N / 2],
                                         uint32_t (&ds)[N / 4], const float (&nlse)[2],
                                         const float (&delta)[2], const Rows& rows, int k0) {
   // the block's first row, not the warpgroup's: a branch on a value the
   // same in every thread of the block keeps ptxas from serializing the
   // wgmmas that run across it (a tile is unmasked iff its last key is at
-  // most the block's first row, so both warpgroups take the same branch)
-  if (k0 + N > rows.Sk || (rows.causal && k0 + N - 1 > rows.q0)) {
-    ds_tile<true, N>(sc, dp, ds, nlse, delta, rows, k0);
+  // most the block's first row, so both warpgroups take the same branch;
+  // under a window, iff also its first key is in the band of the block's
+  // last row)
+  if (k0 + N > rows.Sk || (rows.causal && k0 + N - 1 > rows.q0) ||
+      (kWindow && k0 <= rows.q0 + kBQ - 1 - rows.window)) {
+    ds_tile<true, kWindow, N>(sc, dp, ds, nlse, delta, rows, k0);
   } else {
-    ds_tile<false, N>(sc, dp, ds, nlse, delta, rows, k0);
+    ds_tile<false, kWindow, N>(sc, dp, ds, nlse, delta, rows, k0);
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap k_map,
@@ -174,7 +185,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
                     const __grid_constant__ CUtensorMap do_map,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     void* __restrict__ dq, int B, int H, int Hkv, int Sq, int Sk, Strides dqs,
-                    float scale, int causal, int out_f32) {
+                    float scale, int causal, int window, int out_f32) {
   using L = Smem<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -221,8 +232,9 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load_rows<D>(q_dst, &q_map, bar_qfull + 8 * slot, w.h, w.qt * kBQ, w.b, L::kQPanel);
         tma_load_rows<D>(q_dst + L::kQTile, &do_map, bar_qfull + 8 * slot, w.h, w.qt * kBQ, w.b,
                          L::kQPanel);
-        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal);
-        for (int j = 0; j < nk; ++j, ++kv) {
+        const int j0 = kWindow ? kv_first<kBK>(w.qt * kBQ, window) : 0;
+        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal) - j0;
+        for (int j = j0; j < j0 + nk; ++j, ++kv) {
           const int s = kv % kStages;
           mbar_wait(bar_empty + 8 * s, ((kv / kStages) & 1) ^ 1);
           mbar_expect_tx(bar_full + 8 * s, 2 * kBK * D * 2);
@@ -247,7 +259,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       const int slot = n % L::kQSlots;
       const int q0 = w.qt * kBQ;
       const int wq0 = q0 + wg * 64;
-      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal);
+      const int j0 = kWindow ? kv_first<kBK>(q0, window) : 0;  // the first key tile
+      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal) - j0;
       const int q_off = L::kQ + slot * L::kSlot;  // this item's slot: Q, then dO
       const uint32_t q_rows = base + q_off + wg * 64 * 128;
       const uint32_t do_rows = q_rows + L::kQTile;
@@ -282,7 +295,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
       float sc[kBK / 2], dp[kBK / 2];  // S and dP of the newest tile
-      const Rows rows{q0, wq0 + row_a, lane, Sk, causal};
+      const Rows rows{q0, wq0 + row_a, lane, Sk, causal, window};
       auto k_tile = [&](int i) { return base + L::kK + ((kv + i) % kStages) * L::kKVTile; };
       auto v_tile = [&](int i) { return base + L::kV + ((kv + i) % kStages) * L::kKVTile; };
 
@@ -300,7 +313,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
       // and a copy: a copy lets the compiler give both the same
       // registers, which ptxas then protects by serializing every wgmma
       uint32_t da[kBK / 4], db[kBK / 4];
-      tile_ds<kBK>(sc, dp, da, nlse, dlt, rows, 0);
+      tile_ds<kWindow, kBK>(sc, dp, da, nlse, dlt, rows, j0 * kBK);
 
       // step `it` issues S and dP of tile it and then dQ of tile it - 1
       // (dS in ds_run), waits for S and dP only, and computes dS of tile
@@ -316,7 +329,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait<1>();
         reg_fence(sc);
         reg_fence(dp);
-        tile_ds<kBK>(sc, dp, ds_next, nlse, dlt, rows, it * kBK);
+        tile_ds<kWindow, kBK>(sc, dp, ds_next, nlse, dlt, rows, (j0 + it) * kBK);
         wgmma_wait_all();
         reg_fence(dq_acc);
         mbar_arrive(bar_empty + 8 * ((kv + it - 1) % kStages));  // tile it - 1 is done
@@ -390,7 +403,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dq, int B, int H, int Hkv, int Sq, int Sk, Strides qs,
            Strides ks, Strides vs, Strides dos, Strides dqs, float scale, int causal,
-           int out_f32, cudaStream_t stream) {
+           int window, int out_f32, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
   if (!encode_rows_map(&q_map, q, D, H, Sq, B, qs.b, qs.s, qs.h, kBQ) ||
       !encode_rows_map(&do_map, dout, D, H, Sq, B, dos.b, dos.s, dos.h, kBQ) ||
@@ -399,15 +412,17 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kSmem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const auto kernel = window ? flash_bwd_dq_kernel<D, true> : flash_bwd_dq_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = 0;
   err = persistent_grid((long long)((Sq + kBQ - 1) / kBQ) * B * H, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_bwd_dq_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
-      static_cast<const float*>(delta), dq, B, H, Hkv, Sq, Sk, dqs, scale, causal, out_f32);
+      static_cast<const float*>(delta), dq, B, H, Hkv, Sq, Sk, dqs, scale, causal, window,
+      out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -416,8 +431,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // q, dout: [B, Sq, H, D]-shaped views given by element strides (batch,
 // seq, head; the head_dim stride must be 1); k, v likewise with Hkv heads
 // and Sk rows; lse and delta contiguous [B, H, Sq] f32; dq has q's shape
-// with its own strides, f32 if out_f32 else bf16.  bf16 inputs only; D in
-// {64, 128}; every stride and pointer 16-byte aligned.  Returns the
+// with its own strides, f32 if out_f32 else bf16; window 0, or the sliding
+// window's keys (causal only).  bf16 inputs only; D in {64, 128}; every
+// stride and pointer 16-byte aligned.  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int tpunet_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    const void* dout, const void* lse, const void* delta,
@@ -427,8 +443,10 @@ extern "C" int tpunet_flash_bwd_dq(const void* q, const void* k, const void* v,
                                    long long v_sb, long long v_ss, long long v_sh,
                                    long long do_sb, long long do_ss, long long do_sh,
                                    long long dq_sb, long long dq_ss, long long dq_sh,
-                                   float scale, int causal, int out_f32, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) {
+                                   float scale, int causal, int window, int out_f32,
+                                   void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window && !causal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
@@ -437,10 +455,10 @@ extern "C" int tpunet_flash_bwd_dq(const void* q, const void* k, const void* v,
   switch (D) {
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos, dqs,
-                        scale, causal, out_f32, s);
+                        scale, causal, window, out_f32, s);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, dq, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
-                         dqs, scale, causal, out_f32, s);
+                         dqs, scale, causal, window, out_f32, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

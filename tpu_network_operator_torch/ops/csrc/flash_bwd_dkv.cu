@@ -4,7 +4,10 @@
 // Replaces: tpu_network_operator/ops/pallas_attention.py::_dkv_kernel.
 // Same function, from the forward's f32 log-sum-exp (lse) and
 // delta = rowsum(dO * O) (f32), for each key:
-//   P^T = exp(S^T - lse) with S^T = K bf16(q * scale)^T (masked causally),
+//   P^T = exp(S^T - lse) with S^T = K bf16(q * scale)^T (masked causally,
+//   and by an optional sliding window: query i sees key j iff
+//   i - window < j; each key tile's walk ends at the last q tile of its
+//   band),
 //   dP^T = V dO^T,  dS^T = P^T * (dP^T - delta),
 //   dV = sum bf16(P^T) dO,  dK = sum bf16(dS^T) bf16(q * scale),
 // with bf16 tensor-core operands and f32 accumulation.  The sums run over
@@ -142,13 +145,17 @@ __device__ __forceinline__ void issue_dv_dk(float (&dv)[D / 2], float (&dk)[D / 
 // S^T and dP^T, which it only reads (ptxas serializes wgmmas around
 // registers that other instructions write while one runs), packed to
 // bf16 as A fragments.  stats: the step's lse (times log2 e) and delta
-// rows; the mask only where a row may lie past Sq or a query above its
-// key
+// rows; the mask only where a row may lie past Sq, a query above its key
+// or past the window's band below it.  kWindow: the kernel takes a window
+// (a separate instantiation: the causal kernel's code is the one it had
+// without windows)
+template <bool kWindow>
 __device__ __forceinline__ void step_grads(const float (&st)[kBQ / 2], const float (&dpt)[kBQ / 2],
                                            const float* stats, uint32_t (&pa)[kBQ / 4],
                                            uint32_t (&dsa)[kBQ / 4], int q0, int key0, int lane,
-                                           int Sq, int causal) {
-  const bool masked = q0 + kBQ > Sq || (causal && q0 < key0 + 63);
+                                           int Sq, int causal, int window) {
+  const bool masked = q0 + kBQ > Sq || (causal && q0 < key0 + 63) ||
+                      (kWindow && q0 + kBQ - 1 >= key0 + window);
   float p[2], ds[2];
 #pragma unroll
   for (int j = 0; j < kBQ / 2; ++j) {
@@ -157,7 +164,7 @@ __device__ __forceinline__ void step_grads(const float (&st)[kBQ / 2], const flo
     if (masked) {
       const int q = q0 + col;
       const int key = key0 + 8 * ((j / 2) % 2);
-      if (q >= Sq || (causal && q < key)) pj = 0.f;
+      if (q >= Sq || (causal && q < key) || (kWindow && q >= key + window)) pj = 0.f;
     }
     p[j % 2] = pj;
     ds[j % 2] = pj * (dpt[j] - stats[kBQ + col]);
@@ -168,7 +175,7 @@ __device__ __forceinline__ void step_grads(const float (&st)[kBQ / 2], const flo
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap k_map,
@@ -176,7 +183,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
                      const __grid_constant__ CUtensorMap do_map,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      void* __restrict__ dk, void* __restrict__ dv, int H, int Hkv, int Sq,
-                     int Sk, Strides dks, Strides dvs, float scale, int causal, int out_f32) {
+                     int Sk, Strides dks, Strides dvs, float scale, int causal, int window,
+                     int out_f32) {
   using L = Smem<D>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
@@ -195,6 +203,9 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int n_qt = (Sq + kBQ - 1) / kBQ;
   // q tile i sees key tile kt iff its last row >= the tile's first key
   const int i0 = causal ? k0 / kBQ : 0;
+  // ... and, under a window, iff its first row is in the band of the
+  // tile's last key (k0 + kBK - 1 + window - 1 the last row that sees it)
+  const int i1 = kWindow ? min(n_qt, (k0 + kBK + window - 2) / kBQ + 1) : n_qt;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -221,7 +232,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int hh = 0; hh < n_rep; ++hh) {
       const int h = hk * n_rep + hh;
       const long long stat = ((long long)b * H + h) * Sq;
-      for (int i = i0; i < n_qt; ++i, ++step) {
+      for (int i = i0; i < i1; ++i, ++step) {
         const int s = step % kStages;
         const uint32_t ph = (step / kStages) & 1;
         const int q0 = i * kBQ;
@@ -270,8 +281,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
     mbar_wait(bar_kv, 0);
 
-    const int n_steps = n_rep * (n_qt - i0);
-    auto q_start = [&](int step) { return (i0 + step % (n_qt - i0)) * kBQ; };
+    const int n_steps = n_rep * (i1 - i0);
+    auto q_start = [&](int step) { return (i0 + step % (i1 - i0)) * kBQ; };
     auto stats_of = [&](int s) {
       return reinterpret_cast<const float*>(smem + L::kStats + s * 2 * kBQ * 4);
     };
@@ -305,8 +316,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait<1>();
         reg_fence(st);
         reg_fence(dpt);
-        step_grads(st, dpt, stats_of(s), p_next, ds_next, q_start(step), wk0 + row_a, lane, Sq,
-                   causal);
+        step_grads<kWindow>(st, dpt, stats_of(s), p_next, ds_next, q_start(step), wk0 + row_a,
+                            lane, Sq, causal, window);
         wgmma_wait_all();
         reg_fence(dv_acc);
         reg_fence(dk_acc);
@@ -320,7 +331,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_wait_all();
         reg_fence(st);
         reg_fence(dpt);
-        step_grads(st, dpt, stats_of(0), pa, dsa, q_start(0), wk0 + row_a, lane, Sq, causal);
+        step_grads<kWindow>(st, dpt, stats_of(0), pa, dsa, q_start(0), wk0 + row_a, lane, Sq,
+                            causal, window);
         int step = 1;
         for (; step + 1 < n_steps; step += 2) {
           step_at(step, pa, dsa, pb, dsb);
@@ -351,7 +363,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
         const int q0 = q_start(step);
         mbar_wait(bar_ready + 8 * s, (step / kStages) & 1);
         // a step whose every (q, key) pair is masked only passes its stage on
-        if (!causal || q0 + kBQ - 1 >= wk0) {
+        if ((!causal || q0 + kBQ - 1 >= wk0) && !(kWindow && q0 >= wk0 + 63 + window)) {
           const uint32_t q_tile = base + L::kQ + s * L::kQTile;
           const uint32_t do_tile = base + L::kDO + s * L::kQTile;
           wgmma_fence();
@@ -360,7 +372,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap q_map,
           wgmma_wait_all();
           reg_fence(st);
           reg_fence(dpt);
-          step_grads(st, dpt, stats_of(s), pa, dsa, q0, wk0 + row_a, lane, Sq, causal);
+          step_grads<kWindow>(st, dpt, stats_of(s), pa, dsa, q0, wk0 + row_a, lane, Sq, causal,
+                              window);
           wgmma_fence();
           issue_dv_dk<D>(dv_acc, dk_acc, pa, dsa, q_tile, do_tile);
           wgmma_commit();
@@ -382,7 +395,7 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, const void* dout, const void* lse,
            const void* delta, void* dk, void* dv, int B, int H, int Hkv, int Sq, int Sk,
            Strides qs, Strides ks, Strides vs, Strides dos, Strides dks, Strides dvs,
-           float scale, int causal, int out_f32, cudaStream_t stream) {
+           float scale, int causal, int window, int out_f32, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map, do_map;
   if (!encode_rows_map(&q_map, q, D, H, Sq, B, qs.b, qs.s, qs.h, kBQ) ||
       !encode_rows_map(&do_map, dout, D, H, Sq, B, dos.b, dos.s, dos.h, kBQ) ||
@@ -391,14 +404,15 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kSmem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const auto kernel = window ? flash_bwd_dkv_kernel<D, true> : flash_bwd_dkv_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid(Hkv, B, (Sk + kBK - 1) / kBK);
-  flash_bwd_dkv_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
       static_cast<const float*>(delta), dk, dv, H, Hkv, Sq, Sk, dks, dvs, scale, causal,
-      out_f32);
+      window, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -408,8 +422,9 @@ int launch(const void* q, const void* k, const void* v, const void* dout, const 
 // seq, head; the head_dim stride must be 1); k, v likewise with Hkv heads
 // and Sk rows; lse and delta contiguous [B, H, Sq] f32; dk and dv have k's
 // shape ([B, Sk, Hkv, D] by their own strides), summed over each kv-head's
-// group of H / Hkv q-heads, f32 if out_f32 else bf16.  bf16 inputs only; D
-// in {64, 128}; every stride and pointer 16-byte aligned.  Returns the
+// group of H / Hkv q-heads, f32 if out_f32 else bf16; window 0, or the
+// sliding window's keys (causal only).  bf16 inputs only; D in {64, 128};
+// every stride and pointer 16-byte aligned.  Returns the
 // cudaError_t of the launch (0 = success).
 extern "C" int tpunet_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     const void* dout, const void* lse, const void* delta,
@@ -420,8 +435,10 @@ extern "C" int tpunet_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                     long long do_sb, long long do_ss, long long do_sh,
                                     long long dk_sb, long long dk_ss, long long dk_sh,
                                     long long dv_sb, long long dv_ss, long long dv_sh,
-                                    float scale, int causal, int out_f32, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) {
+                                    float scale, int causal, int window, int out_f32,
+                                    void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window && !causal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh}, vs{v_sb, v_ss, v_sh};
@@ -430,10 +447,10 @@ extern "C" int tpunet_flash_bwd_dkv(const void* q, const void* k, const void* v,
   switch (D) {
     case 64:
       return launch<64>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, qs, ks, vs, dos,
-                        dks, dvs, scale, causal, out_f32, s);
+                        dks, dvs, scale, causal, window, out_f32, s);
     case 128:
       return launch<128>(q, k, v, dout, lse, delta, dk, dv, B, H, Hkv, Sq, Sk, qs, ks, vs,
-                         dos, dks, dvs, scale, causal, out_f32, s);
+                         dos, dks, dvs, scale, causal, window, out_f32, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

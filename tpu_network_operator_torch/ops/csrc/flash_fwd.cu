@@ -6,7 +6,9 @@
 // and the probabilities rounded to bf16 before their products (as the TPU
 // kernel rounds them for its matrix unit), GQA by reading kv-head
 // h / (H / Hkv) with no copy, and an optional causal mask that skips key
-// tiles wholly above the diagonal.  Outputs: O in bf16 and the log-sum-exp
+// tiles wholly above the diagonal, narrowed by an optional sliding window
+// (row i sees key j iff i - window < j <= i) that skips the tiles wholly
+// below the band too.  Outputs: O in bf16 and the log-sum-exp
 // as [B, H, Sq] f32 (no 128-lane broadcast).
 //
 // Bound on this card: the tensor-core rate at the training shape (S 2048,
@@ -110,17 +112,22 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&pa)
 }
 
 // what the mask needs: the block's first query row, this thread's first
-// row (its second is 8 below), its lane, Sk and causality
+// row (its second is 8 below), its lane, Sk, causality and the window
+// (0: none)
 struct Rows {
-  int q0, row, lane, Sk, causal;
+  int q0, row, lane, Sk, causal, window;
 };
 
 // The online softmax of keys [k0, k0 + kBK) from S in `sc`, which it only
 // reads (ptxas serializes wgmmas around registers that other instructions
 // write while one runs): the running max m and this thread's row sums l
 // move on, alpha takes O to the new max, and P goes out packed to bf16.
-// kMask: the tile may hold a key past Sk or above the diagonal.
-template <bool kMask>
+// kMask: the tile may hold a key past Sk, above the diagonal or below the
+// window's band (a row may then see no key of the tile; every row's
+// diagonal key is live in a later tile or this one).  kWindow: the kernel
+// takes a window (a separate instantiation, so the causal kernel's code is
+// the one it had without windows).
+template <bool kMask, bool kWindow>
 __device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 4],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              const Rows& rows, int k0) {
@@ -128,7 +135,10 @@ __device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_
     if constexpr (kMask) {
       const int col = k0 + (i / 4) * 8 + (rows.lane % 4) * 2 + (i % 2);
       const int row = rows.row + 8 * ((i / 2) % 2);
-      if (col >= rows.Sk || (rows.causal && col > row)) return kNegInf;
+      if (col >= rows.Sk || (rows.causal && col > row) ||
+          (kWindow && col <= row - rows.window)) {
+        return kNegInf;
+      }
     }
     return sc[i];
   };
@@ -144,7 +154,9 @@ __device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_
     mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
     const float m_new = fmaxf(m[r], mx[r]);
     alpha[r] = ex2_approx((m[r] - m_new) * kLog2e);
-    neg_ms[r] = -m_new * kLog2e;
+    // a row with no live key yet: its masked keys take P = 0 (with the
+    // max at -1e30, fmaf's unrounded product would leave them P = inf)
+    neg_ms[r] = kWindow && kMask && m_new == kNegInf ? 0.f : -m_new * kLog2e;
     m[r] = m_new;
   }
   float sum[2] = {0.f, 0.f};
@@ -161,26 +173,28 @@ __device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_
   for (int r = 0; r < 2; ++r) l[r] = alpha[r] * l[r] + sum[r];
 }
 
+template <bool kWindow>
 __device__ __forceinline__ void softmax_tile(const float (&sc)[kBK / 2], uint32_t (&pa)[kBK / 4],
                                              float (&m)[2], float (&l)[2], float (&alpha)[2],
                                              const Rows& rows, int k0) {
   // the block's first row, not the warpgroup's: both pick the same tiles
   // (kBK == kBQ), and a branch on a value the same in every thread of the
   // block keeps ptxas from serializing the wgmmas that run across it
-  if (k0 + kBK > rows.Sk || (rows.causal && k0 + kBK - 1 > rows.q0)) {
-    softmax_tile<true>(sc, pa, m, l, alpha, rows, k0);
+  if (k0 + kBK > rows.Sk || (rows.causal && k0 + kBK - 1 > rows.q0) ||
+      (kWindow && k0 <= rows.q0 + kBQ - 1 - rows.window)) {
+    softmax_tile<true, kWindow>(sc, pa, m, l, alpha, rows, k0);
   } else {
-    softmax_tile<false>(sc, pa, m, l, alpha, rows, k0);
+    softmax_tile<false, kWindow>(sc, pa, m, l, alpha, rows, k0);
   }
 }
 
-template <int D>
+template <int D, bool kWindow>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                  const __grid_constant__ CUtensorMap k_map,
                  const __grid_constant__ CUtensorMap v_map, bf16* __restrict__ o,
                  float* __restrict__ lse, int B, int H, int Hkv, int Sq, int Sk, Strides os,
-                 float scale, int causal) {
+                 float scale, int causal, int window) {
   using L = Smem<D>;
   constexpr int kStages = L::kStages;
   extern __shared__ unsigned char smem_raw[];
@@ -226,8 +240,9 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(bar_qfull + 8 * slot, kBQ * D * 2);
         tma_load_rows<D>(base + L::kQ + slot * L::kQTile, &q_map, bar_qfull + 8 * slot, w.h,
                          w.qt * kBQ, w.b, L::kQPanel);
-        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal);
-        for (int j = 0; j < nk; ++j, ++kv) {
+        const int j0 = kWindow ? kv_first<kBK>(w.qt * kBQ, window) : 0;
+        const int nk = kv_tiles<kBQ, kBK>(w.qt * kBQ, Sq, Sk, causal) - j0;
+        for (int j = j0; j < j0 + nk; ++j, ++kv) {
           const int s = kv % kStages;
           mbar_wait(bar_empty + 8 * s, ((kv / kStages) & 1) ^ 1);
           mbar_expect_tx(bar_full + 8 * s, 2 * kBK * D * 2);
@@ -252,7 +267,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       const int slot = n % L::kQSlots;
       const int q0 = w.qt * kBQ;
       const int wq0 = q0 + wg * 64;
-      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal);
+      const int j0 = kWindow ? kv_first<kBK>(q0, window) : 0;  // the first key tile
+      const int nk = kv_tiles<kBQ, kBK>(q0, Sq, Sk, causal) - j0;
       const int q_off = L::kQ + slot * L::kQTile;  // this item's Q slot
       const uint32_t q_rows = base + q_off + wg * 64 * 128;
 
@@ -283,7 +299,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       // copy lets the compiler give both the same registers, which ptxas
       // then protects by serializing every wgmma
       uint32_t pa[kBK / 4], pb[kBK / 4];
-      const Rows rows{q0, wq0 + row_a, lane, Sk, causal};
+      const Rows rows{q0, wq0 + row_a, lane, Sk, causal, window};
 
       // tile 0: S and its softmax
       mbar_wait(bar_full + 8 * (kv % kStages), (kv / kStages) & 1);
@@ -292,7 +308,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       wgmma_commit();
       wgmma_wait_all();
       reg_fence(sc);
-      softmax_tile(sc, pa, m, l, alpha, rows, 0);
+      softmax_tile<kWindow>(sc, pa, m, l, alpha, rows, j0 * kBK);
 
       // step `it` issues S of tile it and then P V of tile it - 1 (P in
       // p_run), waits for S only, and runs the softmax of tile it into
@@ -309,7 +325,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         wgmma_commit();
         wgmma_wait<1>();
         reg_fence(sc);
-        softmax_tile(sc, p_next, m, l, alpha, rows, it * kBK);
+        softmax_tile<kWindow>(sc, p_next, m, l, alpha, rows, (j0 + it) * kBK);
         wgmma_wait_all();
         reg_fence(o_acc);
         mbar_arrive(bar_empty + 8 * sp);  // tile it - 1's K and V stage is free
@@ -385,7 +401,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse, int B, int H,
            int Hkv, int Sq, int Sk, Strides qs, Strides ks, Strides vs, Strides os,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, int window, cudaStream_t stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!encode_rows_map(&q_map, q, D, H, Sq, B, qs.b, qs.s, qs.h, kBQ) ||
       !encode_rows_map(&k_map, k, D, Hkv, Sk, B, ks.b, ks.s, ks.h, kBK) ||
@@ -393,15 +409,16 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   constexpr int kSmem = Smem<D>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+  const auto kernel = window ? flash_fwd_kernel<D, true> : flash_fwd_kernel<D, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = 0;
   err = persistent_grid((long long)((Sq + kBQ - 1) / kBQ) * B * H, &grid);
   if (err != cudaSuccess) return static_cast<int>(err);
-  flash_fwd_kernel<D><<<grid, kThreads, kSmem, stream>>>(
+  kernel<<<grid, kThreads, kSmem, stream>>>(
       q_map, k_map, v_map, static_cast<bf16*>(o), static_cast<float*>(lse), B, H, Hkv, Sq, Sk,
-      os, scale, causal);
+      os, scale, causal, window);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -410,7 +427,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse, int 
 // q: [B, Sq, H, D]-shaped view given by element strides (batch, seq, head;
 // the head_dim stride must be 1); k/v likewise with Hkv heads and Sk rows;
 // o has q's shape with its own strides; lse is contiguous [B, H, Sq] f32.
-// bf16 only; D in {64, 128}; every stride and pointer 16-byte aligned.
+// window: 0, or the sliding window's keys (causal only).  bf16 only; D in
+// {64, 128}; every stride and pointer 16-byte aligned.
 // Returns the cudaError_t of the launch (0 = success).
 extern "C" int tpunet_flash_fwd(const void* q, const void* k, const void* v, void* o,
                                 void* lse, int B, int H, int Hkv, int Sq, int Sk, int D,
@@ -418,8 +436,9 @@ extern "C" int tpunet_flash_fwd(const void* q, const void* k, const void* v, voi
                                 long long k_sb, long long k_ss, long long k_sh,
                                 long long v_sb, long long v_ss, long long v_sh,
                                 long long o_sb, long long o_ss, long long o_sh,
-                                float scale, int causal, void* stream) {
-  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0) {
+                                float scale, int causal, int window, void* stream) {
+  if (B <= 0 || H <= 0 || Hkv <= 0 || H % Hkv || Sq <= 0 || Sk <= 0 || window < 0 ||
+      (window && !causal)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Strides qs{q_sb, q_ss, q_sh}, ks{k_sb, k_ss, k_sh};
@@ -427,9 +446,11 @@ extern "C" int tpunet_flash_fwd(const void* q, const void* k, const void* v, voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, qs, ks, vs, os, scale, causal, s);
+      return launch<64>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, qs, ks, vs, os, scale, causal, window,
+                        s);
     case 128:
-      return launch<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, qs, ks, vs, os, scale, causal, s);
+      return launch<128>(q, k, v, o, lse, B, H, Hkv, Sq, Sk, qs, ks, vs, os, scale, causal, window,
+                         s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

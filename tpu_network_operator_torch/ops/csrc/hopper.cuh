@@ -111,6 +111,15 @@ __device__ __forceinline__ int kv_tiles(int q0, int Sq, int Sk, int causal) {
   return causal ? min(n, (min(q0 + BQ, Sq) - 1) / BK + 1) : n;
 }
 
+// the first BK-key tile that q rows from q0 on see under a sliding window
+// of `window` keys (row i sees key j iff i - window < j <= i): the tile of
+// key q0 - window + 1; 0 without a window.  The tiles below it are skipped,
+// not masked
+template <int BK>
+__device__ __forceinline__ int kv_first(int q0, int window) {
+  return window > 0 && q0 >= window ? (q0 - window + 1) / BK : 0;
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared-memory addresses, mbarriers, TMA.
 

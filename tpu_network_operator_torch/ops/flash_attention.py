@@ -26,6 +26,13 @@ run the plain versions at the kernels' tiles, the references a kernel is
 held to on the card.
 :func:`chunk_fwd` and :func:`chunk_bwd` are the raw per-chunk seams (not
 differentiable) that ring attention combines with a global lse and delta.
+
+``window`` (0: none) narrows the causal mask to a sliding window: query i
+sees key j iff ``i - window < j <= i``, the convention of transformers'
+sliding masks.  The kernels and the plain versions alike skip the key
+blocks wholly below the band (forward and dQ start each q block's walk at
+the first block that meets it; dK/dV ends each key block's walk at the
+last q block that meets it) and mask the blocks on its edges by element.
 """
 
 from __future__ import annotations
@@ -74,7 +81,26 @@ def _bf16(t):
     return t.float().to(torch.bfloat16).float()
 
 
-def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
+def _check_window(window: int, causal: bool) -> None:
+    if window < 0 or (window and not causal):
+        raise ValueError(
+            f"a sliding window ({window}) must be >= 0 and narrows the "
+            "causal mask: causal=True"
+        )
+
+
+def _window_masked(rows, cols, window: int):
+    """Pairs below the band: row i does not see key j <= i - window."""
+    return rows - cols >= window
+
+
+def _first_block(i: int, bq: int, bk: int, window: int) -> int:
+    """The first key block that q block ``i`` sees under ``window``."""
+    return max(i * bq - window + 1, 0) // bk if window else 0
+
+
+def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool,
+                     window: int = 0):
     """q: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D] -> (o [B, H, Sq, D] in
     q.dtype, lse [B, H, Sq] f32).  Blockwise online softmax, f32 state."""
     b, h, sq, d = q.shape
@@ -91,7 +117,7 @@ def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
         m = torch.full((b, h, bq, 1), NEG_INF, device=q.device)
         l = torch.zeros((b, h, bq, 1), device=q.device)
         acc = torch.zeros((b, h, bq, d), device=q.device)
-        for j in range(sk // bk):
+        for j in range(_first_block(i, bq, bk, window), sk // bk):
             if causal and j * bk > i * bq + bq - 1:
                 break           # this and later key blocks are fully masked
             kj = kr[:, :, j * bk:(j + 1) * bk].float()
@@ -101,6 +127,9 @@ def _flash_fwd_plain(q, k, v, *, block_q: int, block_k: int, causal: bool):
                 rows = i * bq + torch.arange(bq, device=q.device)[:, None]
                 cols = j * bk + torch.arange(bk, device=q.device)[None, :]
                 s = s.masked_fill(rows < cols, NEG_INF)
+                if window:
+                    s = s.masked_fill(_window_masked(rows, cols, window),
+                                      NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
             p = torch.exp(s - m_new)
             alpha = torch.exp(m - m_new)
@@ -116,12 +145,13 @@ class _BwdPlain:
     """Shared set-up of the two plain backward passes: q, do [B, H, Sq, D];
     k, v [B, Hkv, Sk, D]; lse, delta [B, H, Sq] f32."""
 
-    def __init__(self, q, k, v, do, lse, delta, block_q, block_k, causal):
+    def __init__(self, q, k, v, do, lse, delta, block_q, block_k, causal,
+                 window=0):
         self.b, self.h, self.sq, self.d = q.shape
         self.hkv, self.sk = k.shape[1], k.shape[2]
         self.bq, self.bk = _block_sizes(self.sq, self.sk, block_q, block_k)
         self.scale = self.d ** -0.5
-        self.causal, self.device = causal, q.device
+        self.causal, self.window, self.device = causal, window, q.device
         n_rep = self.h // self.hkv
         self.k = _repeat_heads(k, n_rep).float()
         self.v = _repeat_heads(v, n_rep).float()
@@ -136,6 +166,11 @@ class _BwdPlain:
         return t[:, :, j * self.bk:(j + 1) * self.bk]
 
     def live(self, i, j):
+        """Whether q block i sees some key of block j: on or below the
+        diagonal, and within the window's band."""
+        if self.window and j * self.bk + self.bk - 1 <= i * self.bq \
+                - self.window:
+            return False
         return not self.causal or j * self.bk <= i * self.bq + self.bq - 1
 
     def probs(self, qi, kj, i, j):
@@ -145,6 +180,10 @@ class _BwdPlain:
             r = i * self.bq + torch.arange(self.bq, device=self.device)
             c = j * self.bk + torch.arange(self.bk, device=self.device)
             s = s.masked_fill(r[:, None] < c[None, :], NEG_INF)
+            if self.window:
+                s = s.masked_fill(
+                    _window_masked(r[:, None], c[None, :], self.window),
+                    NEG_INF)
         return torch.exp(s - self.rows(self.lse, i))
 
 
@@ -155,7 +194,8 @@ def _flash_bwd_dq_plain(bp: _BwdPlain, dq_dtype: torch.dtype):
     for i in range(bp.sq // bp.bq):
         qi, doi = bp.rows(bp.qs, i), bp.rows(bp.do, i)
         acc = torch.zeros((bp.b, bp.h, bp.bq, bp.d), device=bp.device)
-        for j in range(bp.sk // bp.bk):
+        for j in range(_first_block(i, bp.bq, bp.bk, bp.window),
+                       bp.sk // bp.bk):
             if not bp.live(i, j):
                 break
             kj = bp.cols(bp.k, j)
@@ -179,7 +219,7 @@ def _flash_bwd_dkv_plain(bp: _BwdPlain):
         dv = torch.zeros_like(dk)
         for i in range(bp.sq // bp.bq):
             if not bp.live(i, j):
-                continue
+                continue        # above the diagonal, or past the band
             qi, doi = bp.rows(bp.qs, i), bp.rows(bp.do, i)
             p = bp.probs(qi, kj, i, j)
             dv = dv + _bf16(p).transpose(-1, -2) @ doi
@@ -195,7 +235,7 @@ def _flash_bwd_dkv_plain(bp: _BwdPlain):
 
 def _flash_bwd_plain(q, k, v, do, lse, delta, *, block_q: int,
                      block_k: int, causal: bool,
-                     dq_dtype: torch.dtype = torch.float32):
+                     dq_dtype: torch.dtype = torch.float32, window: int = 0):
     """q, do: [B, H, Sq, D]; k, v: [B, Hkv, Sk, D]; lse, delta [B, H, Sq]
     f32 -> (dq [B, H, Sq, D] in ``dq_dtype``, dk and dv [B, Hkv, Sk, D]
     f32, summed over each kv-head's group of q-heads).
@@ -203,7 +243,7 @@ def _flash_bwd_plain(q, k, v, do, lse, delta, *, block_q: int,
     Two blockwise passes, as the reference's two kernels run them, each
     rounding its matmul operands to bf16 where that kernel does:
     :func:`_flash_bwd_dq_plain` and :func:`_flash_bwd_dkv_plain`."""
-    bp = _BwdPlain(q, k, v, do, lse, delta, block_q, block_k, causal)
+    bp = _BwdPlain(q, k, v, do, lse, delta, block_q, block_k, causal, window)
     return (_flash_bwd_dq_plain(bp, dq_dtype), *_flash_bwd_dkv_plain(bp))
 
 
@@ -214,29 +254,34 @@ def _plain_block(s: int, tile: int) -> int:
     return tile if s % min(tile, s) == 0 else s
 
 
-def _bwd_plain_at(q, k, v, do, lse, delta, tile, causal) -> _BwdPlain:
+def _bwd_plain_at(q, k, v, do, lse, delta, tile, causal,
+                  window=0) -> _BwdPlain:
     """:class:`_BwdPlain` blocked as a kernel of tile ``tile`` (q rows,
     keys) blocks these sequences."""
     return _BwdPlain(q, k, v, do, lse, delta,
                      _plain_block(q.shape[2], tile[0]),
-                     _plain_block(k.shape[2], tile[1]), causal)
+                     _plain_block(k.shape[2], tile[1]), causal, window)
 
 
-def _flash_fwd_plain_at_tiles(q, k, v, *, causal: bool):
+def _flash_fwd_plain_at_tiles(q, k, v, *, causal: bool, window: int = 0):
     """:func:`_flash_fwd_plain` ([B, H, S, D]) at the forward kernel's
     tiles: what ``csrc/flash_fwd.cu`` computes, in its blocking."""
     return _flash_fwd_plain(
         q, k, v, block_q=_plain_block(q.shape[2], FWD_TILE[0]),
-        block_k=_plain_block(k.shape[2], FWD_TILE[1]), causal=causal)
+        block_k=_plain_block(k.shape[2], FWD_TILE[1]), causal=causal,
+        window=window)
 
 
 def _flash_bwd_plain_at_tiles(q, k, v, do, lse, delta, *, causal: bool,
-                              dq_dtype: torch.dtype = torch.float32):
+                              dq_dtype: torch.dtype = torch.float32,
+                              window: int = 0):
     """:func:`_flash_bwd_plain` ([B, H, S, D]) at the backward kernels'
     tiles: dq at :data:`DQ_TILE`, dk and dv (f32) at :data:`DKV_TILE`."""
     args = (q, k, v, do, lse, delta)
-    dq = _flash_bwd_dq_plain(_bwd_plain_at(*args, DQ_TILE, causal), dq_dtype)
-    return (dq, *_flash_bwd_dkv_plain(_bwd_plain_at(*args, DKV_TILE, causal)))
+    dq = _flash_bwd_dq_plain(_bwd_plain_at(*args, DQ_TILE, causal, window),
+                             dq_dtype)
+    return (dq, *_flash_bwd_dkv_plain(
+        _bwd_plain_at(*args, DKV_TILE, causal, window)))
 
 
 def attention_delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -306,7 +351,8 @@ def _strides(t, seq_dim, head_dim):
     return t.stride(0), t.stride(seq_dim), t.stride(head_dim)
 
 
-def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
+def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int,
+                      window: int = 0):
     """Launch the kernel on q/k/v whose seq and head axes are
     ``seq_dim``/``head_dim`` (1/2 for [B,S,H,D], 2/1 for [B,H,S,D]).
     Returns (o in q's layout, lse [B, H, Sq] f32)."""
@@ -322,7 +368,8 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, hkv, sq, sk, d,
         *strides(q), *strides(k), *strides(v), *strides(o),
-        float(d ** -0.5), int(causal), _kernels.stream_handle(q.device),
+        float(d ** -0.5), int(causal), int(window),
+        _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "flash_fwd")
     _kernels.count_launch("flash_fwd")
@@ -330,7 +377,8 @@ def _flash_fwd_kernel(q, k, v, *, causal: bool, seq_dim: int, head_dim: int):
 
 
 def _flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
-                         seq_dim: int, head_dim: int, out_f32: bool):
+                         seq_dim: int, head_dim: int, out_f32: bool,
+                         window: int = 0):
     """Launch the dQ kernel (layout as in :func:`_flash_fwd_kernel`):
     dq in q's layout, f32 if ``out_f32`` else bf16."""
     _check_bwd_inputs(q, k, v, do, lse, delta, seq_dim, head_dim)
@@ -343,7 +391,7 @@ def _flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
         b, h, hkv, sq, sk, d,
         *(st for t in (q, k, v, do, dq)
           for st in _strides(t, seq_dim, head_dim)),
-        float(d ** -0.5), int(causal), int(out_f32),
+        float(d ** -0.5), int(causal), int(window), int(out_f32),
         _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "flash_bwd_dq")
@@ -352,7 +400,8 @@ def _flash_bwd_dq_kernel(q, k, v, do, lse, delta, *, causal: bool,
 
 
 def _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
-                          seq_dim: int, head_dim: int, out_f32: bool):
+                          seq_dim: int, head_dim: int, out_f32: bool,
+                          window: int = 0):
     """Launch the dK/dV kernel: (dk, dv) in k's layout, summed over each
     kv-head's group of q-heads, f32 if ``out_f32`` else bf16."""
     _check_bwd_inputs(q, k, v, do, lse, delta, seq_dim, head_dim)
@@ -366,7 +415,7 @@ def _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, *, causal: bool,
         b, h, hkv, sq, sk, d,
         *(st for t in (q, k, v, do, dk, dv)
           for st in _strides(t, seq_dim, head_dim)),
-        float(d ** -0.5), int(causal), int(out_f32),
+        float(d ** -0.5), int(causal), int(window), int(out_f32),
         _kernels.stream_handle(q.device),
     )
     _kernels.check(err, "flash_bwd_dkv")
@@ -379,18 +428,19 @@ class _FlashAttention(torch.autograd.Function):
     q, k, v, o and the f32 lse for the backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, block_q, block_k):
+    def forward(ctx, q, k, v, causal, block_q, block_k, window):
         if q.device.type == "cuda":
             o, lse = _flash_fwd_kernel(q, k, v, causal=causal, seq_dim=1,
-                                       head_dim=2)
+                                       head_dim=2, window=window)
         else:
             o, lse = _flash_fwd_plain(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 block_q=block_q, block_k=block_k, causal=causal,
+                window=window,
             )
             o = o.transpose(1, 2)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.blocks = causal, (block_q, block_k)
+        ctx.causal, ctx.blocks, ctx.window = causal, (block_q, block_k), window
         return o
 
     @staticmethod
@@ -399,19 +449,21 @@ class _FlashAttention(torch.autograd.Function):
         do = do.contiguous()
         delta = attention_delta(o.transpose(1, 2), do.transpose(1, 2))
         if q.device.type == "cuda":
-            kw = dict(causal=ctx.causal, seq_dim=1, head_dim=2, out_f32=False)
+            kw = dict(causal=ctx.causal, seq_dim=1, head_dim=2, out_f32=False,
+                      window=ctx.window)
             dq = _flash_bwd_dq_kernel(q, k, v, do, lse, delta, **kw)
             dk, dv = _flash_bwd_dkv_kernel(q, k, v, do, lse, delta, **kw)
-            return dq, dk, dv, None, None, None
+            return dq, dk, dv, None, None, None, None
         # the reference's dense backward: dq in q.dtype, dk/dv summed in
         # f32 and cast to k.dtype
         dq, dk, dv = _flash_bwd_plain(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             do.transpose(1, 2), lse, delta, block_q=ctx.blocks[0],
             block_k=ctx.blocks[1], causal=ctx.causal, dq_dtype=q.dtype,
+            window=ctx.window,
         )
         return (dq.transpose(1, 2), dk.to(k.dtype).transpose(1, 2),
-                dv.to(v.dtype).transpose(1, 2), None, None, None)
+                dv.to(v.dtype).transpose(1, 2), None, None, None, None)
 
 
 def flash_attention(
@@ -422,11 +474,14 @@ def flash_attention(
     block_q: int = 512,
     block_k: int = 512,
     causal: bool = True,
+    window: int = 0,
 ) -> torch.Tensor:
     """Drop-in for :func:`.attention.causal_attention` (same layout),
-    differentiable in q, k and v."""
+    differentiable in q, k and v; ``window`` > 0 sees only the last
+    ``window`` keys of each query (itself included)."""
     _block_sizes(q.shape[1], k.shape[1], block_q, block_k)
-    return _FlashAttention.apply(q, k, v, causal, block_q, block_k)
+    _check_window(window, causal)
+    return _FlashAttention.apply(q, k, v, causal, block_q, block_k, window)
 
 
 def chunk_fwd(q, k, v, *, causal: bool,

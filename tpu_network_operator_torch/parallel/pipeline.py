@@ -492,7 +492,7 @@ class PipelineStep:
     def grads_fn(self, params, tokens):
         """(global loss, grads tree in the params' dtypes)."""
         from ..models import training
-        from ..ops.rope import rope_angles
+        from ..models.llama import rope_tables
 
         cfg, lay, mesh, M = self.cfg, self.layout, self.mesh, self.M
         n_batch = 1 if mesh is None else mesh.size("data", "fsdp")
@@ -505,10 +505,7 @@ class PipelineStep:
         if s % self.seq_size:
             raise ValueError(f"seq {s} not divisible by seq axis "
                              f"{self.seq_size}")
-        self._rope = rope_angles(s, cfg.head_dim, cfg.rope_theta,
-                                 scaling=getattr(cfg, "rope_scaling_dict",
-                                                 None),
-                                 device=tokens.device)
+        self._rope = rope_tables(cfg, s, tokens.device)[0]
         micro = [lay.local_tokens(t) for t in tokens.reshape(M, b // M, s1)]
         acc = training.tree_map(
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
