@@ -362,7 +362,7 @@ TRAIN_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "flash_fwd", "flash_bwd_dq",
 DECODE_ATTN_SHAPES = {
     "mistral-7b.decode-b128": (128, 32, 8, 128, 768, (640, 768)),
     "llama3-1b": (BATCH, 32, 8, 64, PROMPT + NEW_TOKENS, (256, 384)),
-    "mistral-7b.b4_2k_split": (4, 32, 8, 128, 2048, (2048,)),
+    "mistral-7b.b4_2k_split": (4, 32, 8, 128, 2048, (1024, 2048)),
 }
 # kernels 1 to 3 timed at the benchmark's train cells' attention (causal:
 # window 0) and at the Mellum2 cell's (H 32 / Hkv 4: causal on its full
@@ -721,7 +721,9 @@ def decode_attn_entry(gen, b, h, hkv, d, slots, length, bw, peak) -> dict:
     layer 0 of the caches, then its time, its plain version's, the parent
     route's (the grouped einsum over the cell's attn_len view of the
     cache) and SDPA's on contiguous copies, beside its bound (K and V of
-    ``length`` keys, q and o)."""
+    ``length`` keys, q and o).  With the length in device memory (the
+    CUDA-graph decode step's call: the split planned for the cache's
+    slots) it is held to the plain version and timed too."""
     layer_bytes = b * slots * hkv * d * 2 * 2
     layers = max(2, math.ceil(DECODE_ATTN_ROTATE_BYTES / layer_bytes))
     q = torch.randn(b, 1, h, d, device="cuda", generator=gen).bfloat16()
@@ -736,6 +738,11 @@ def decode_attn_entry(gen, b, h, hkv, d, slots, length, bw, peak) -> dict:
     check(err <= FLASH_O_ATOL,
           f"decode_attn disagrees with its plain version at "
           f"{(b, h, hkv, d, slots, length)}: {err}")
+    dev_len = torch.full((1,), length, dtype=torch.int64, device="cuda")
+    err_dev = max_err(decode_attention(q, kc[0], vc[0], dev_len), ref)
+    check(err_dev <= FLASH_O_ATOL,
+          f"decode_attn with a device length disagrees with its plain "
+          f"version at {(b, h, hkv, d, slots, length)}: {err_dev}")
     turn = itertools.count()
 
     def rotate(fn, ks=kc, vs=vc):
@@ -759,6 +766,9 @@ def decode_attn_entry(gen, b, h, hkv, d, slots, length, bw, peak) -> dict:
         "splits": splits, "tiles_per_split": per, "max_abs_err": err,
         "ms": time_ms(rotate(lambda k, v: decode_attention(q, k, v,
                                                            length))),
+        "device_length_ms": time_ms(rotate(
+            lambda k, v: decode_attention(q, k, v, dev_len))),
+        "device_length_max_abs_err": err_dev,
         "plain_ms": time_ms_eager(
             rotate(lambda k, v: decode_attention_plain(q, k, v, length)),
             iters=3, reps=3),
@@ -1065,6 +1075,23 @@ def launch_events(prof, key: str) -> list:
             for e, nxt in zip(evs, [*evs[1:], None]) if key in e.name]
 
 
+# LAUNCHES' name -> the name of the kernel each launch it counts runs
+TRACED_KERNELS = {"decode_attn": "decode_attn_kernel",
+                  "rms_norm_fwd": "rms_norm_fwd_kernel"}
+
+
+def traced_launches(prof) -> dict:
+    """The launches of TRACED_KERNELS that the card ran in a profile,
+    counted by kernel name (a CUDA graph's replay runs its kernels under
+    their own names)."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {k: sum(kernel in n for n in names)
+            for k, kernel in TRACED_KERNELS.items()}
+
+
 def _device_us(event) -> float:
     """The device time of the kernels a CPU event (an op or a
     ``record_function`` range) launched, its children's included."""
@@ -1189,6 +1216,19 @@ def phase_generate():
 
     out, first_s, _ = drive()
     out, dt, launches = drive()
+    # the counts measured: the call again under a CUDA trace, the card's
+    # kernels counted by name against what the wrappers counted
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, _, traced_counted = drive()
+    traced = traced_launches(prof)
+    check(traced_counted == launches,
+          f"kernel launches under the profiler {traced_counted}, "
+          f"untraced {launches}")
+    check(all(traced_counted[k] == n for k, n in traced.items()),
+          f"the trace ran {traced}, the wrappers counted {traced_counted}")
 
     # prefill alone, then profiled prefills and a profiled window of
     # decode steps, for the breakdown (outside the counted run)
@@ -1222,7 +1262,7 @@ def phase_generate():
           "seconds": dt, "first_call_seconds": first_s,
           "prefill_ms": prefill_s * 1e3,
           "decode_step_ms": (dt - prefill_s) / (NEW_TOKENS - 1) * 1e3,
-          "launches": launches,
+          "launches": launches, "traced_launches": traced,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
           "out_shape": list(out.shape)})
     emit({"phase": "profile_prefill", **prefill_profile})

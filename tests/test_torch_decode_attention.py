@@ -234,6 +234,22 @@ def test_split_plan(blocks, length, d, splits):
         assert tiles - per > 512 // tda.DECODE_TILE
 
 
+@pytest.mark.parametrize("length", [1, 63, 64, 65, MAX_LEN])
+def test_tensor_length_is_the_int_length(length):
+    # the length a captured step reads from a buffer: the same keys
+    q, k, v = (torch.from_numpy(t) for t in _inputs(7, 2, 2, 4, 64, length))
+    out = tda.decode_attention(q, k[1], v[1], torch.tensor([length]))
+    assert torch.equal(out, tda.decode_attention(q, k[1], v[1], length))
+
+
+def test_tensor_length_refusals():
+    q, kc = torch.zeros(2, 1, 4, 64), torch.zeros(2, 16, 2, 64)
+    for bad in (torch.tensor([3], dtype=torch.int32), torch.tensor([3, 4]),
+                torch.tensor(3.0)):
+        with pytest.raises(ValueError, match="a tensor length must be"):
+            tda.decode_attention(q, kc, kc, bad)
+
+
 def test_kernel_is_registered():
     assert _kernels.LAUNCHES["decode_attn"] >= 0
-    assert len(_kernels._SIGNATURES["tpunet_decode_attn"]) == 26
+    assert len(_kernels._SIGNATURES["tpunet_decode_attn"]) == 27

@@ -40,6 +40,9 @@ PROMPT, NEW = 8, 8
 
 
 def _generate_rank(rank, world, tree, prompt):
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_network_operator_torch import tracing
     from tpu_network_operator_torch.models import llama as tllama
     from tpu_network_operator_torch.models.generate import make_generate_fn
     from tpu_network_operator_torch.parallel import make_mesh, plan_axes
@@ -53,7 +56,11 @@ def _generate_rank(rank, world, tree, prompt):
         rows = torch.from_numpy(prompt).chunk(mesh.size("data", "fsdp"))[
             mesh.index("data", "fsdp")]
         gen = make_generate_fn(cfg, NEW, kv_dtype=kv_dtype, mesh=mesh)
-        out[name] = (mesh.index("data", "fsdp"), gen(params, rows).numpy())
+        tracing.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU]):
+            tokens = gen(params, rows).numpy()
+        out[name] = (mesh.index("data", "fsdp"), tokens)
+        out[name + "/counters"] = tracing.counters()
     return out
 
 
@@ -104,6 +111,14 @@ def test_mesh_generate_gives_the_reference_greedy_tokens(
         shards[index] = rows
     got = np.concatenate([shards[i] for i in sorted(shards)])
     np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_mesh_generate_takes_the_eager_loop(world4, name):
+    # a mesh's steps never run as a CUDA graph replay
+    for r in world4:
+        assert r[name + "/counters"] == {"generate.eager_steps": NEW - 1,
+                                         "generate.graph_steps": 0}
 
 
 def _launch_two_ranks(flags):

@@ -247,3 +247,130 @@ def test_cli_generate_cpu(capsys):
     assert row["unit"] == "tokens/sec" and row["value"] > 0
     assert row["out_shape"] == [2, 13]
     assert {"batch", "new_tokens", "kv_dtype", "mesh"} <= set(row)
+
+
+# -- the CUDA-graph route's rule, its fallbacks and its step, on the CPU -----
+
+
+def _small(hidden=128):
+    """f32, 2 layers, one kv-head; head_dim hidden / 2 (64, 128 or 96)."""
+    return tllama.LlamaConfig(vocab_size=256, hidden=hidden, layers=2,
+                              heads=2, kv_heads=1, ffn=256, max_seq=256,
+                              dtype=torch.float32)
+
+
+def _small_run(cfg, **kw):
+    params = tllama.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompt = torch.randint(0, 256, (2, 8),
+                           generator=torch.Generator().manual_seed(1))
+    return params, prompt, tgen.generate(params, prompt, cfg, 12, max_len=40,
+                                         **kw)
+
+
+# the new tokens the eager loop gave before the graph route existed
+STORED_TOKENS = {
+    (128, "native"): [[110, 110, 233, 97, 162, 112, 222, 206, 126, 222, 214,
+                       214],
+                      [186, 30, 148, 30, 30, 30, 30, 40, 180, 30, 40, 219]],
+    (256, "native"): [[67, 67, 67, 67, 122, 37, 87, 117, 91, 57, 81, 7],
+                      [221, 29, 29, 235, 29, 146, 43, 100, 6, 29, 83, 146]],
+    (128, "int8"): [[110, 110, 233, 97, 162, 140, 87, 29, 233, 233, 222, 206],
+                    [186, 30, 148, 30, 30, 30, 30, 40, 180, 30, 40, 219]],
+    (192, "native"): [[137, 137, 86, 91, 86, 86, 86, 86, 86, 86, 86, 86],
+                      [77, 34, 165, 34, 165, 227, 139, 204, 87, 139, 204,
+                       98]],
+}
+
+
+@pytest.mark.parametrize("hidden,kv_dtype,decode_block", [
+    (128, "native", 256), (128, "native", 4), (256, "native", 256),
+    (128, "int8", 256), (192, "native", 4)])
+def test_cpu_greedy_tokens_are_the_stored_ones(hidden, kv_dtype,
+                                               decode_block):
+    _, prompt, out = _small_run(_small(hidden), kv_dtype=kv_dtype,
+                                decode_block=decode_block)
+    assert out.dtype == torch.int32 and torch.equal(out[:, :8].long(), prompt)
+    assert out[:, 8:].tolist() == STORED_TOKENS[(hidden, kv_dtype)]
+
+
+def _counted(fn):
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_network_operator_torch import tracing
+
+    tracing.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            fn()
+        return tracing.counters()
+    finally:
+        tracing.reset_counters()
+
+
+@pytest.mark.parametrize("hidden,kw", [
+    (128, {}),                                   # the CPU
+    (128, {"kv_dtype": "int8"}),
+    (192, {}),                                   # head_dim 96
+    (128, {"temperature": 0.7, "generator": torch.Generator()}),
+])
+def test_fallbacks_count_eager_steps(hidden, kw):
+    got = _counted(lambda: _small_run(_small(hidden), **kw))
+    assert got == {"generate.eager_steps": 11, "generate.graph_steps": 0}
+
+
+def test_counters_only_under_a_profiler():
+    from tpu_network_operator_torch import tracing
+
+    tracing.reset_counters()
+    _small_run(_small())
+    assert tracing.counters() == {}
+
+
+@pytest.mark.parametrize("change", [None, "cpu", "mesh", "int8",
+                                    "head_dim_96", "sampled"])
+def test_graph_rule(change):
+    # each condition alone sends a call to the eager loop
+    args = dict(cfg=_small(), device=torch.device("cuda"), mesh=None,
+                kv_dtype="native", temperature=0.0)
+    args.update({None: {}, "cpu": {"device": torch.device("cpu")},
+                 "mesh": {"mesh": object()}, "int8": {"kv_dtype": "int8"},
+                 "head_dim_96": {"cfg": _small(192)},
+                 "sampled": {"temperature": 0.5}}[change])
+    assert tgen._graph_ok(**args) == (change is None)
+
+
+@pytest.mark.parametrize("hidden", [128, 256])
+def test_device_position_step_gives_the_eager_tokens(hidden):
+    # the graph route's step (position and token in buffers, the cache
+    # row written by index, the length read from a tensor), called
+    # eagerly, against the eager loop
+    cfg = _small(hidden)
+    params, prompt, want = _small_run(cfg)
+    cache = tgen.init_cache(cfg, 2, 40, device="cpu")
+    rope = tllama.rope_tables(cfg, 40, "cpu")[0]
+
+    def forward(tokens, pos, attn_len=None):
+        return tgen.forward_with_cache(params, tokens, cache, pos, cfg,
+                                       attn_len, rope)[0]
+
+    out = torch.full((2, 20), -1, dtype=torch.int32)
+    out[:, :8] = prompt
+    out[:, 8] = tgen._sample(forward(prompt.long(), 0, 8)[:, -1], 0.0, None)
+    step = tgen._DecodeStep(forward, out, 8)
+    for _ in range(11):
+        step()
+    assert torch.equal(out, want)
+    assert step.pos.tolist() == [19] and step.tok[:, 0].tolist() == \
+        want[:, 19].tolist()
+
+
+def test_device_position_refusals():
+    pos = torch.tensor([8])
+    for cfg, kv, s in ((_small(), "int8", 1), (_small(192), "native", 1),
+                       (_small(), "native", 2)):
+        params = tllama.init_params(cfg, torch.Generator().manual_seed(0),
+                                    "cpu")
+        cache = tgen.init_cache(cfg, 1, 16, kv, device="cpu")
+        with pytest.raises(ValueError, match="a device position takes"):
+            tgen.forward_with_cache(params, torch.zeros(1, s).long(), cache,
+                                    pos, cfg)

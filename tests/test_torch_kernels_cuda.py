@@ -31,6 +31,9 @@ pytestmark = pytest.mark.cuda
 
 RMS_TOL = {"bf16": (1e-2, 1e-2), "f16": (2e-3, 2e-3), "f32": (1e-5, 1e-5)}
 DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16, "f32": torch.float32}
+# decode attention against its plain version, in relative norm: a bf16
+# rounding of the output, with room for the f32 order
+DECODE_REL = 5e-3
 
 
 @pytest.fixture
@@ -181,6 +184,61 @@ def test_generate_on_card_matches_cpu_and_counts(cuda):
     assert int(out.max()) < cfg.vocab_size
 
 
+def _traced_launches(prof) -> dict:
+    """The decode-attention and RMSNorm-forward kernels the card ran in a
+    profile, counted by name (a graph replay's kernels keep theirs)."""
+    from torch.autograd import DeviceType
+
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA]
+    return {k: sum(f"{k}_kernel" in n for n in names)
+            for k in ("decode_attn", "rms_norm_fwd")}
+
+
+@pytest.mark.parametrize("heads,kv_heads,hidden,prompt_len,new,block", [
+    (4, 2, 256, 128, 6, 256),     # the config above: D 64, flash prefill
+    (4, 2, 256, 60, 12, 64),      # the eager loop crosses decode_block 64
+    (32, 8, 4096, 60, 12, 64),    # GQA at D 128, H 32/8
+])
+def test_generate_graph_route_gives_the_eager_tokens(
+        cuda, monkeypatch, heads, kv_heads, hidden, prompt_len, new, block):
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_network_operator_torch import tracing
+
+    cfg = tllama.LlamaConfig(vocab_size=512, hidden=hidden, layers=2,
+                             heads=heads, kv_heads=kv_heads, ffn=512,
+                             max_seq=256)
+    params = tllama.init_params(cfg, cuda, "cuda")
+    prompt = torch.randint(0, 512, (2, prompt_len), device="cuda",
+                           generator=cuda)
+    got = {}
+    for route in ("graph", "eager"):
+        if route == "eager":
+            monkeypatch.setattr(tgen, "_graph_ok", lambda *a: False)
+        _kernels.reset_launches()
+        tracing.reset_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = tgen.generate(params, prompt, cfg, new,
+                                decode_block=block)
+            torch.cuda.synchronize()
+        got[route] = (out, dict(_kernels.LAUNCHES), tracing.counters(),
+                      _traced_launches(prof))
+        tracing.reset_counters()
+    assert torch.equal(got["graph"][0], got["eager"][0])
+    assert got["graph"][1] == got["eager"][1]
+    assert got["graph"][1]["decode_attn"] == cfg.layers * (new - 1)
+    # the counts the card ran, by kernel name in the trace
+    for route in got:
+        assert got[route][3] == {k: got[route][1][k]
+                                 for k in ("decode_attn", "rms_norm_fwd")}
+    assert got["graph"][2] == {"generate.eager_steps": 1,
+                               "generate.graph_steps": new - 2}
+    assert got["eager"][2] == {"generate.eager_steps": new - 1,
+                               "generate.graph_steps": 0}
+
+
 # -- decode attention ---------------------------------------------------------
 
 
@@ -228,6 +286,57 @@ def test_decode_attn_kernel_matches_plain(cuda, dtype, b, h, hkv, d, length,
     k[:, length:] = float("nan")
     v[:, length:] = float("nan")
     assert torch.equal(tda.decode_attention(q, k, v, length), out)
+
+
+@pytest.mark.parametrize("length", [1, 63, 64, 65, 800])
+def test_decode_attn_device_length_matches_by_value(cuda, length):
+    # 40 rows x 8 kv-heads: one part at every length, so the same bits
+    q, k, v = _decode_case(cuda, 40, 32, 8, 128, 800)
+    want = tda.decode_attention(q, k, v, length)
+    got = tda.decode_attention(
+        q, k, v, torch.full((1,), length, dtype=torch.int64, device="cuda"))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_decode_attn_split_for_the_cache_at_shorter_lengths(cuda, dtype):
+    # B4 H32/8 D128 over a 2048-slot cache: a device length plans 3 parts
+    # of 11 tiles for the 2048 slots; at 1 and 100 keys the last two are
+    # empty, at 705 the second holds one key.  One captured launch replays
+    # every length, as a decode step's graph does.  An empty part whose
+    # lse were 0 in place of -inf would weigh in the combine and scale
+    # the output down by a share or more, over the relative bound.
+    b, h, hkv, d, slots = 4, 32, 8, 128, 2048
+    blocks = b * hkv * -(-(h // hkv) // tda.KERNEL_ROWS)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tda.split_plan(blocks, slots, sms, d)[0] > 1
+    q, k, v = _decode_case(cuda, b, h, hkv, d, slots, dtype)
+    length = torch.full((1,), slots, dtype=torch.int64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tda.decode_attention(q, k, v, length)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = tda.decode_attention(q, k, v, length)
+    torch.cuda.current_stream().wait_stream(side)
+    for n in (1, 100, 704, 705, 1500, slots):
+        length.fill_(n)
+        graph.replay()
+        ref = tda._decode_attention_plain(q, k, v, n, block_k=tda.DECODE_TILE)
+        rel = ((out.float() - ref.float()).norm()
+               / ref.float().norm()).item()
+        assert rel <= DECODE_REL, (n, rel)
+        # eager, the same split: the same bits
+        assert torch.equal(tda.decode_attention(q, k, v, length), out)
+    # keys past the length are never read, in the empty parts neither
+    length.fill_(100)
+    graph.replay()
+    first = out.clone()
+    k[:, 100:] = float("nan")
+    v[:, 100:] = float("nan")
+    graph.replay()
+    assert torch.equal(out, first)
 
 
 def test_decode_attn_kernel_refuses(cuda):

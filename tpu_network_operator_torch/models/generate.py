@@ -16,25 +16,36 @@ axes replicate, as under the reference's generate.
   the flash gate takes) runs the flash kernel.  A decode step over a
   native-dtype cache at head_dim 64 or 128 runs the decode-attention
   kernel (:mod:`..ops.decode_attention`), which reads exactly the filled
-  prefix of the un-sliced cache in place.  Every other step (an int8
+  prefix of the un-sliced cache in place; its position is a device
+  tensor (the cache row written by index), its length an int or, in a
+  captured step, a device tensor too.  Every other step (an int8
   cache, another head_dim, several new tokens past position 0) runs the
   plain grouped-einsum attention over the static ``attn_len`` prefix.
-* The decode loop is split into ``decode_block`` segments, each attending
-  over one prefix length (the filled length rounded up to the block), so
-  per-token attention work on the plain route tracks the generated
-  length.
-* PyTorch runs eagerly: the RoPE tables are computed once per
-  :func:`generate` call and handed to every step.
+* The eager decode loop is split into ``decode_block`` segments, each
+  attending over one prefix length (the filled length rounded up to the
+  block), so per-token attention work on the plain route tracks the
+  generated length.
+* On one CUDA device, greedy, over a native cache on the decode kernel's
+  route, the decode steps after the first run as one CUDA graph replay
+  each (:func:`_graph_ok`): the position and the token live in device
+  buffers that the captured step reads and advances itself
+  (:class:`_DecodeStep`) and kernel 7 reads its length from device
+  memory, so the host launches one graph
+  a token and never waits.  The graph is captured once per call, on the
+  call's own cache and weights.  Every other call runs the eager loop.
+* Otherwise PyTorch runs eagerly: the RoPE tables and the layers' slices
+  are made once per :func:`generate` call and handed to every step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 
 from .. import resolve_device, tracing
+from ..ops import _kernels
 from ..ops.attention import causal_attention
 from ..ops.decode_attention import decode_attention
 from ..ops.flash_attention import KERNEL_HEAD_DIMS, flash_attention
@@ -109,12 +120,47 @@ def _dequant(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale[..., None]).to(dtype)
 
 
-def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
-                      attn_len: Optional[int] = None, cks=None, cvs=None):
+def _attend(cfg: LlamaConfig, pos: int, q, k, v, ck, cv,
+            attn_len: Optional[int], cks, cvs):
+    """Off the decode kernel's route: the new rows k/v [B, s, Hkv, D]
+    written into the cache at host position ``pos``, then the attention of
+    q [B, s, H, D] over it (flash for a prefill, else the grouped einsum)."""
+    s = q.shape[1]
+    if cks is not None:
+        kq, k_sc = _quant_rows(k)
+        vq, v_sc = _quant_rows(v)
+        ck[:, pos:pos + s] = kq
+        cv[:, pos:pos + s] = vq
+        cks[:, pos:pos + s] = k_sc
+        cvs[:, pos:pos + s] = v_sc
+    else:
+        ck[:, pos:pos + s] = k
+        cv[:, pos:pos + s] = v
+
+    # query i attends cache slots <= pos + i; slots past the filled
+    # prefix are masked by exactly that, so reading only attn_len rows
+    # is a pure work reduction
+    lim = ck.shape[1] if attn_len is None else min(attn_len, ck.shape[1])
+    if _prefill_flash_ok(cfg, pos, s, lim):
+        return flash_attention(q, k, v)
+    ckv, cvv = ck[:, :lim], cv[:, :lim]
+    if cks is not None:
+        ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
+        cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
+    return causal_attention(q, ckv, cvv, q_offset=pos)
+
+
+def _block_with_cache(lay: Layout, cos, sin, pos, x, lp, ck, cv,
+                      attn_len: Optional[int] = None, cks=None, cvs=None,
+                      length=None):
     """One block over cached keys/values; returns the new x.
 
     x: [B, s, H] new tokens at absolute positions [pos, pos + s);
     ck/cv: [B, max_len, Hkv, D] this layer's cache, written in place.
+    ``pos``: an int, or on the decode kernel's route (``length`` given,
+    see :func:`forward_with_cache`) a [1] int64 device tensor: the cache
+    row is then written by index and the kernel reads ``length`` = pos + 1,
+    an int or a device tensor.
     ``attn_len`` bounds the filled prefix the plain route reads; the
     decode kernel reads the ``pos + 1`` filled slots of the whole cache.
     ``cks``/``cvs``: per-row-head f32 scales when the cache is int8; fresh
@@ -127,36 +173,18 @@ def _block_with_cache(lay: Layout, cos, sin, pos: int, x, lp, ck, cv,
     q = (y @ lay.w(lp["wq"], 0)).reshape(b, s, lay.heads, cfg.head_dim)
     k = lay.kv(y @ lay.w(lp["wk"], 0), b, s)
     v = lay.kv(y @ lay.w(lp["wv"], 0), b, s)
-    positions = torch.arange(pos, pos + s, device=x.device)
+    positions = pos if length is not None else torch.arange(
+        pos, pos + s, device=x.device)
     q = apply_rope_at(q, cos, sin, positions)
     k = apply_rope_at(k, cos, sin, positions)
 
     with tracing.span("generate.attention"):
-        if cks is not None:
-            kq, k_sc = _quant_rows(k)
-            vq, v_sc = _quant_rows(v)
-            ck[:, pos:pos + s] = kq
-            cv[:, pos:pos + s] = vq
-            cks[:, pos:pos + s] = k_sc
-            cvs[:, pos:pos + s] = v_sc
+        if length is not None:
+            ck.index_copy_(1, pos, k)
+            cv.index_copy_(1, pos, v)
+            a = decode_attention(q, ck, cv, length)
         else:
-            ck[:, pos:pos + s] = k
-            cv[:, pos:pos + s] = v
-
-        # query i attends cache slots <= pos + i; slots past the filled
-        # prefix are masked by exactly that, so reading only attn_len rows
-        # is a pure work reduction
-        lim = ck.shape[1] if attn_len is None else min(attn_len, ck.shape[1])
-        if _decode_kernel_ok(cfg, s, cks is not None):
-            a = decode_attention(q, ck, cv, pos + 1)
-        elif _prefill_flash_ok(cfg, pos, s, lim):
-            a = flash_attention(q, k, v)
-        else:
-            ckv, cvv = ck[:, :lim], cv[:, :lim]
-            if cks is not None:
-                ckv = _dequant(ckv, cks[:, :lim], cfg.dtype)
-                cvv = _dequant(cvv, cvs[:, :lim], cfg.dtype)
-            a = causal_attention(q, ckv, cvv, q_offset=pos)
+            a = _attend(cfg, pos, q, k, v, ck, cv, attn_len, cks, cvs)
     x = x + comm.reduce_from(a.reshape(b, s, -1) @ lay.w(lp["wo"], 1),
                              lay.tp)
 
@@ -170,32 +198,54 @@ def forward_with_cache(
     params: Params,
     tokens: torch.Tensor,              # [B, s] int
     cache: Dict[str, torch.Tensor],
-    pos: int,
+    pos: Union[int, torch.Tensor],
     cfg: LlamaConfig,
     attn_len: Optional[int] = None,
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     layout: Optional[Layout] = None,
+    layers: Optional[List[Dict[str, torch.Tensor]]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(logits [B, s, vocab] f32, cache updated in place).  Serves both
     prefill (s = prompt length, pos = 0) and decode (s = 1).
 
+    ``pos``: the first new token's position, an int or, for one new token
+    over a native cache on the decode kernel's route, a [1] int64 tensor
+    on the cache's device (read there, so that a captured step serves
+    every position).  That route reads the filled prefix of the whole
+    cache, and ``attn_len`` is unused there.
     ``attn_len``: upper bound on the filled prefix (pos + s <= attn_len);
     None = the whole buffer.  ``rope``: the (cos, sin) tables over the
     cache length, computed here when not given.  ``layout``: this rank's
-    part of a sharded model (None: the whole model)."""
+    part of a sharded model (None: the whole model).  ``layers``:
+    :func:`.llama.unbind_layers` of ``params``, made here when not
+    given."""
     lay = layout or Layout(cfg)
     max_len = cache["k"].shape[2]
+    quant = "k_scale" in cache
+    length = None
+    if _decode_kernel_ok(cfg, tokens.shape[1], quant):
+        # by value where the host knows it: the kernel's split then fits
+        # the filled prefix, not the cache's slots
+        length = pos + 1
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((1,), pos, dtype=torch.int64,
+                             device=cache["k"].device)
+    elif isinstance(pos, torch.Tensor):
+        raise ValueError(
+            "a device position takes one new token over a native cache "
+            f"at head_dim {KERNEL_HEAD_DIMS}, got {tokens.shape[1]} "
+            f"tokens, head_dim {cfg.head_dim}, int8 cache {quant}"
+        )
     x = lay.whole(params["embed"])[tokens].to(cfg.dtype)
     if rope is None:
         rope = rope_tables(cfg, max_len, x.device)[0]
     cos, sin = rope
-    quant = "k_scale" in cache
-    for i, lp in enumerate(unbind_layers(params)):
+    for i, lp in enumerate(layers or unbind_layers(params)):
         scales = (cache["k_scale"][i], cache["v_scale"][i]) if quant \
             else (None, None)
         x = _block_with_cache(
             lay, cos, sin, pos, x, lp,
-            cache["k"][i], cache["v"][i], attn_len, *scales,
+            cache["k"][i], cache["v"][i], attn_len, *scales, length=length,
         )
     x = rms_norm(x, params["ln_final"], cfg.rms_eps)
     logits = (x @ lay.whole(params["lm_head"])).float()
@@ -269,8 +319,10 @@ def generate(
     ``top_k`` and ``top_p`` are unused).  ``kv_dtype="int8"`` block-
     quantizes the KV cache (see :func:`init_cache`).
 
-    ``decode_block``: effective-length decode granularity; 0 attends over
-    the full buffer every step."""
+    ``decode_block``: effective-length decode granularity of the eager
+    loop; 0 attends over the full buffer every step.  The CUDA graph route
+    (:func:`_graph_ok`) reads the filled prefix of the whole buffer at
+    every step, as the eager loop's decode kernel does."""
     device = params["embed"].device
     prompt = prompt.to(device=device, dtype=torch.int64)
     b, s = prompt.shape
@@ -286,34 +338,114 @@ def generate(
     cache = init_cache(cfg, b, max_len, kv_dtype, device=device,
                        kv_heads=lay.kv_heads)
     rope = rope_tables(cfg, max_len, device)[0]
+    layers = unbind_layers(params)
+
+    def forward(tokens, pos, attn_len=None):
+        return forward_with_cache(params, tokens, cache, pos, cfg, attn_len,
+                                  rope, lay, layers)[0]
+
     # prefill attends over its own keys only, not the whole buffer
     with tracing.span("generate.prefill"):
-        logits, cache = forward_with_cache(params, prompt, cache, 0, cfg,
-                                           attn_len=s, rope=rope, layout=lay)
-        tok = _sample(logits[:, -1], temperature, generator, top_k, top_p)
+        tok = _sample(forward(prompt, 0, s)[:, -1], temperature, generator,
+                      top_k, top_p)
 
-    toks = [prompt.to(torch.int32)]
-    steps_total = max_new_tokens - 1
-    blk = decode_block if decode_block > 0 else max_len
-    done = 0
-    while done < steps_total:
-        # the segment's first step writes position s + done, so it needs
-        # attn_len >= s + done + 1; round up to the block grid, cap at the
-        # buffer, and run until the prefix would overflow that bound
-        attn_len = min(-(-(s + done + 1) // blk) * blk, max_len)
-        n = min(steps_total - done, attn_len - (s + done))
-        for _ in range(n):
-            toks.append(tok[:, None])
-            with tracing.span("generate.decode_step"):
-                logits, cache = forward_with_cache(
-                    params, tok[:, None].long(), cache, s + done, cfg,
-                    attn_len=attn_len, rope=rope, layout=lay,
-                )
-                tok = _sample(logits[:, -1], temperature, generator, top_k,
-                              top_p)
-            done += 1
-    toks.append(tok[:, None])
-    return torch.cat(toks, dim=1)
+    out = torch.empty((b, s + max_new_tokens), dtype=torch.int32,
+                      device=device)
+    out[:, :s] = prompt
+    out[:, s] = tok
+    steps = max_new_tokens - 1
+    if _graph_ok(cfg, device, mesh, kv_dtype, temperature) and steps:
+        _decode_as_graph(forward, out, s, steps)
+        eager = 1
+    else:
+        blk = decode_block if decode_block > 0 else max_len
+        done = 0
+        while done < steps:
+            # the segment's first step writes position s + done, so it
+            # needs attn_len >= s + done + 1; round up to the block grid,
+            # cap at the buffer, and run until the prefix would overflow
+            # that bound
+            attn_len = min(-(-(s + done + 1) // blk) * blk, max_len)
+            n = min(steps - done, attn_len - (s + done))
+            for _ in range(n):
+                with tracing.span("generate.decode_step"):
+                    logits = forward(tok[:, None].long(), s + done, attn_len)
+                    tok = _sample(logits[:, -1], temperature, generator,
+                                  top_k, top_p)
+                done += 1
+                out[:, s + done] = tok
+        eager = steps
+    tracing.count("generate.eager_steps", lambda: torch.tensor(eager))
+    tracing.count("generate.graph_steps", lambda: torch.tensor(steps - eager))
+    return out
+
+
+def _graph_ok(cfg: LlamaConfig, device: torch.device, mesh, kv_dtype: str,
+              temperature: float) -> bool:
+    """Whether the decode steps run as CUDA graph replays: only where
+    every op of a step can be captured and the tokens are the eager loop's.
+    One CUDA device (a mesh's collectives stay eager), a native cache on
+    the decode kernel's route (the others read a view cut at a host
+    position), greedy decoding (sampling draws from a host generator)."""
+    return (device.type == "cuda" and mesh is None and kv_dtype == "native"
+            and temperature == 0.0 and _decode_kernel_ok(cfg, 1, False))
+
+
+class _DecodeStep:
+    """One greedy decode step on static buffers: a call runs ``forward``
+    (tokens [B, 1], position [1] int64 -> logits [B, 1, V]) on the token
+    buffer at the position buffer, writes the argmax into the token buffer
+    and into ``out`` at the column after the position, and advances the
+    position.  No host value enters a call, so a CUDA graph that captured
+    one replays every later step.  Starts at ``pos``, whose token ``out``
+    holds."""
+
+    def __init__(self, forward: Callable, out: torch.Tensor, pos: int):
+        self.forward = forward
+        self.made = out[:, 1:]             # column p: the token slot p makes
+        self.tok = out[:, pos:pos + 1].long()
+        self.pos = torch.full((1,), pos, dtype=torch.int64,
+                              device=out.device)
+
+    def __call__(self) -> None:
+        tok = _sample(self.forward(self.tok, self.pos)[:, -1], 0.0, None)
+        self.tok.copy_(tok[:, None])
+        self.made.index_copy_(1, self.pos, tok[:, None])
+        self.pos.add_(1)
+
+
+def _decode_as_graph(forward: Callable, out: torch.Tensor, s: int,
+                     steps: int) -> None:
+    """``steps`` greedy decode steps from position ``s`` into ``out``:
+    the first eagerly, on the side stream a CUDA graph of the step is then
+    captured on (real work, and it warms cuBLAS and the kernels there),
+    every later one as a replay of that capture.  The host never waits on
+    the device.  The hand-written kernels' counts
+    (:data:`..ops._kernels.LAUNCHES`) stay the eager steps': the capture
+    counts none, and each replay the capture's."""
+    step = _DecodeStep(forward, out, s)
+    main = torch.cuda.current_stream(out.device)
+    side = torch.cuda.Stream(out.device)
+    side.wait_stream(main)
+    graph, launches = torch.cuda.CUDAGraph(), {}
+
+    def capture():
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+
+    with torch.cuda.stream(side):
+        with tracing.span("generate.decode_step"):
+            step()
+        if steps > 1:
+            launches = _kernels.captured(capture)
+    main.wait_stream(side)
+    for _ in range(steps - 1):
+        with tracing.span("generate.decode_step"):
+            graph.replay()
+        _kernels.replayed(launches)
 
 
 def make_generate_fn(

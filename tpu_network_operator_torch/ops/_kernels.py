@@ -17,7 +17,10 @@ library and read by :func:`ptxas_report`.
 
 :data:`LAUNCHES` counts, per kernel, the launches the wrappers made: each
 wrapper adds one where it launches its kernel and nowhere else, so a run
-can show that its path went through the kernels.
+can show that its path went through the kernels.  A CUDA graph's capture
+launches nothing: :func:`captured` takes its counts back out and returns
+them, and :func:`replayed` adds them for each replay, so a replayed step
+counts as the eager one does.
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 
@@ -65,7 +68,8 @@ _SIGNATURES = {
     "tpunet_flash_bwd_dkv": [_P] * 8 + [_I] * 6 + [_LL] * 18
     + [_F, _I, _I, _I, _P],
     "tpunet_adam8_fused": [_P, _I] + [_F] * 9 + [_P],
-    "tpunet_decode_attn": [_P] * 6 + [_I] * 7 + [_LL] * 10 + [_F, _I, _P],
+    "tpunet_decode_attn": [_P] * 6 + [_I] * 5 + [_P, _I, _I] + [_LL] * 10
+    + [_F, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -79,6 +83,28 @@ def reset_launches() -> None:
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def captured(capture: Callable[[], None]) -> Dict[str, int]:
+    """Run ``capture``, a CUDA graph's capture (which launches nothing):
+    the launches the wrappers counted in it, taken back out of
+    :data:`LAUNCHES`.  Each replay of the graph launches them
+    (:func:`replayed`)."""
+    before = dict(LAUNCHES)
+    try:
+        capture()
+    finally:
+        made = {n: c - before[n] for n, c in LAUNCHES.items()
+                if c != before[n]}
+        LAUNCHES.update(before)
+    return made
+
+
+def replayed(counts: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture :func:`captured`
+    returned ``counts``."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -40,6 +40,12 @@
 //   combines them (the wrapper picks the split from the shape,
 //   decode_attention.split_plan).
 //
+// The length comes by value, or from device memory (`length_dev`), so
+// that one captured launch serves every decode step of a CUDA graph: the
+// split is then planned for the by-value bound (the cache's slots), and
+// a part whose tiles all lie past the length writes a zero O and a
+// log-sum-exp of -inf, which the combine weighs as nothing.
+//
 // At D 128 a block holds 96 KB of ring (two blocks an SM), at D 64 48 KB
 // (four).  The [B, Hkv, R, len] scores never reach device memory.
 
@@ -66,6 +72,7 @@ struct Args {
   void* o;
   float* part_o;    // [splits, B, H, D] when the keys split, else null
   float* part_lse;  // [splits, B, H], log2 units
+  const long long* length_dev;  // the length, at most `length`; null: `length`
   long long q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh;
   int B, H, Hkv, length, splits, tiles_per_split;
   float scale_log2;  // D^-0.5 * log2(e)
@@ -175,9 +182,28 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t4 = lane % 4;
 
-  const int n_tiles = (a.length + kTile - 1) / kTile;
+  const int length = a.length_dev == nullptr
+                         ? a.length
+                         : static_cast<int>(max(0LL, min(*a.length_dev, (long long)a.length)));
+  const int n_tiles = (length + kTile - 1) / kTile;
   const int t_begin = split * a.tiles_per_split;
-  const int n = min(a.tiles_per_split, n_tiles - t_begin);  // >= 1: the host splits so
+  // >= 1 for a length by value (the host splits so); a length read from
+  // device memory may leave the last parts empty
+  const int n = min(a.tiles_per_split, n_tiles - t_begin);
+  const long long plane = (long long)a.B * a.H;
+  if (n <= 0) {
+    for (int e = tid; e < rows * D; e += kThreads) {
+      const int h = h0 + e / D, d = e % D;
+      if (a.splits == 1) {
+        static_cast<T*>(a.o)[b * a.o_sb + h * a.o_sh + d] = Kind<T>::from(0.f);
+      } else {
+        const long long at = split * plane + (long long)b * a.H + h;
+        a.part_o[at * D + d] = 0.f;
+        if (d == 0) a.part_lse[at] = -INFINITY;
+      }
+    }
+    return;
+  }
 
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + hkv * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + hkv * a.v_sh;
@@ -192,7 +218,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
       const int c = i * kThreads + tid;
       const int row = c / kChunks, col = c % kChunks;
       const int key = key0 + row;
-      const bool live = key < a.length;
+      const bool live = key < length;
       const long long at = live ? key : 0;
       cp_async16(ks + tile_off<D>(row, col), kb + at * a.k_ss + col * 8, live ? 16 : 0);
       cp_async16(vs + tile_off<D>(row, col), vb + at * a.v_ss + col * 8, live ? 16 : 0);
@@ -266,7 +292,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
-        const float x = key < a.length ? s[nt][e] * a.scale_log2 : -INFINITY;
+        const float x = key < length ? s[nt][e] * a.scale_log2 : -INFINITY;
         s[nt][e] = x;
         mx[e >> 1] = fmaxf(mx[e >> 1], x);
       }
@@ -342,7 +368,6 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
   }
   __syncthreads();
 
-  const long long plane = (long long)a.B * a.H;
   for (int e = tid; e < rows * D; e += kThreads) {
     const int r = e / D, d = e % D;
     float top = -INFINITY;  // finite: warp 0 holds the block's first key
@@ -367,7 +392,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(const Args a) {
 }
 
 // the key splits of one (batch row, q-head) weighed by their sums: one
-// thread a column of D
+// thread a column of D; empty parts (lse -inf) weigh nothing, and a row
+// with no key at all is zero
 template <typename T, int D>
 __global__ void __launch_bounds__(D) decode_attn_combine_kernel(const Args a) {
   const long long plane = (long long)a.B * a.H;
@@ -375,13 +401,17 @@ __global__ void __launch_bounds__(D) decode_attn_combine_kernel(const Args a) {
   const int d = threadIdx.x;
   float top = -INFINITY;
   for (int s = 0; s < a.splits; ++s) top = fmaxf(top, a.part_lse[s * plane + bh]);
+  const long long b = bh / a.H, h = bh % a.H;
+  if (top == -INFINITY) {
+    static_cast<T*>(a.o)[b * a.o_sb + h * a.o_sh + d] = Kind<T>::from(0.f);
+    return;
+  }
   float num = 0.f, den = 0.f;
   for (int s = 0; s < a.splits; ++s) {
     const float wt = exp2f(a.part_lse[s * plane + bh] - top);
     num += wt * a.part_o[(s * plane + bh) * D + d];
     den += wt;
   }
-  const long long b = bh / a.H, h = bh % a.H;
   static_cast<T*>(a.o)[b * a.o_sb + h * a.o_sh + d] = Kind<T>::from(num / den);
 }
 
@@ -416,14 +446,15 @@ int launch_d(const Args& a, int D, cudaStream_t stream) {
 // cache [B, max_len, Hkv, D] given by element strides (batch, position,
 // head); the head_dim stride is 1 everywhere, every pointer and stride
 // 16-byte aligned.  o: [B, 1, H, D] by strides (batch, head).  Keys 0 ..
-// length-1 are read.  splits > 1: part_o [splits, B, H, D] and part_lse
+// length-1 are read; with `length_dev` (a device int64) keys 0 ..
+// min(*length_dev, length)-1, the split planned for `length`.  splits > 1: part_o [splits, B, H, D] and part_lse
 // [splits, B, H] contiguous f32 scratch, split s taking tiles [s tps,
 // (s + 1) tps) of the 64-key tiles, none of them empty.  dtype: 1 =
 // bfloat16, 2 = float16 (q, k, v and o share it); D in {64, 128}.
 // Returns the cudaError_t of the launches (0 = success).
 extern "C" int tpunet_decode_attn(const void* q, const void* k, const void* v, void* o,
                                   void* part_o, void* part_lse, int B, int H, int Hkv, int D,
-                                  int length, int splits, int tiles_per_split, long long q_sb,
+                                  int length, const void* length_dev, int splits, int tiles_per_split, long long q_sb,
                                   long long q_sh, long long k_sb, long long k_ss, long long k_sh,
                                   long long v_sb, long long v_ss, long long v_sh, long long o_sb,
                                   long long o_sh, float scale, int dtype, void* stream) {
@@ -435,6 +466,7 @@ extern "C" int tpunet_decode_attn(const void* q, const void* k, const void* v, v
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Args a{q, k, v, o, static_cast<float*>(part_o), static_cast<float*>(part_lse),
+               static_cast<const long long*>(length_dev),
                q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_sh,
                B, H, Hkv, length, splits, tiles_per_split, scale * kLog2e};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

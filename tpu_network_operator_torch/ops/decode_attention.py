@@ -15,13 +15,19 @@ rounded to ``v``'s dtype before their product with V, as the kernel rounds
 them.  :func:`decode_attention` dispatches by the tensors' device: CPU
 tensors take the plain version, CUDA tensors the kernel, with no fallback
 between them and no switch.
+
+The length is a Python int or a one-element int64 tensor on the tensors'
+device.  The kernel reads a tensor length from device memory when it
+runs, so a CUDA graph that captured the launch once replays it at every
+decode step's length; its key split is then planned for the cache's
+slots, the longest length it can see.
 """
 
 from __future__ import annotations
 
 import functools
 import math
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -35,8 +41,9 @@ KERNEL_ROWS = 16
 _DTYPE_CODES = {torch.bfloat16: 1, torch.float16: 2}
 
 
-def _check_shapes(q, k_cache, v_cache, length: int) -> None:
-    """The function's own conditions, on either device."""
+def _check_shapes(q, k_cache, v_cache, length) -> None:
+    """The function's own conditions, on either device (a tensor length
+    is checked for its form; its value is on the device)."""
     if q.dim() != 4 or q.shape[1] != 1:
         raise ValueError(f"q must be [B, 1, H, D], got {tuple(q.shape)}")
     if k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
@@ -58,7 +65,14 @@ def _check_shapes(q, k_cache, v_cache, length: int) -> None:
         raise ValueError(
             f"q heads ({h}) must be a multiple of kv heads ({k_cache.shape[2]})"
         )
-    if not 1 <= length <= k_cache.shape[1]:
+    if isinstance(length, torch.Tensor):
+        if length.dtype != torch.int64 or length.numel() != 1 \
+                or length.device != q.device:
+            raise ValueError(
+                f"a tensor length must be one int64 on q's device, got "
+                f"{length.dtype} of {length.numel()} on {length.device}"
+            )
+    elif not 1 <= length <= k_cache.shape[1]:
         raise ValueError(
             f"length must be in [1, {k_cache.shape[1]}] (the cache's slots), "
             f"got {length}"
@@ -135,12 +149,17 @@ def _check_kernel_inputs(q, k_cache, v_cache) -> None:
             )
 
 
-def _decode_attention_kernel(q, k_cache, v_cache, length: int):
-    """Launch the kernel (and, where the keys split, its combine step)."""
+def _decode_attention_kernel(q, k_cache, v_cache, length):
+    """Launch the kernel (and, where the keys split, its combine step);
+    a tensor length is read on the device, the split planned for the
+    cache's slots."""
     _check_kernel_inputs(q, k_cache, v_cache)
     b, _, h, d = q.shape
     hkv = k_cache.shape[2]
     blocks = b * hkv * -(-(h // hkv) // KERNEL_ROWS)
+    length_dev = None
+    if isinstance(length, torch.Tensor):
+        length_dev, length = length.data_ptr(), k_cache.shape[1]
     splits, per = split_plan(blocks, length,
                              _sm_count(q.device.index
                                        if q.device.index is not None
@@ -156,7 +175,7 @@ def _decode_attention_kernel(q, k_cache, v_cache, length: int):
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
         None if part_o is None else part_o.data_ptr(),
         None if part_lse is None else part_lse.data_ptr(),
-        b, h, hkv, d, length, splits, per,
+        b, h, hkv, d, length, length_dev, splits, per,
         q.stride(0), q.stride(2),
         k_cache.stride(0), k_cache.stride(1), k_cache.stride(2),
         v_cache.stride(0), v_cache.stride(1), v_cache.stride(2),
@@ -173,14 +192,16 @@ def decode_attention(
     q: torch.Tensor,                   # [B, 1, H, D]
     k_cache: torch.Tensor,             # [B, max_len, Hkv, D]
     v_cache: torch.Tensor,             # [B, max_len, Hkv, D]
-    length: int,
+    length: Union[int, torch.Tensor],
 ) -> torch.Tensor:
     """One decode step's attention: query row 0 of every batch row attends
     cache slots 0 .. ``length``-1 (the filled prefix, the new key
-    included), read in place from the un-sliced cache.  Returns [B, 1, H,
-    D] in q's dtype.  The kernel on CUDA tensors (bfloat16 or float16),
-    the plain version on CPU tensors; head_dim 64 or 128 on both."""
+    included), read in place from the un-sliced cache.  ``length``: an int,
+    or a one-element int64 tensor on q's device whose value (1 to the
+    cache's slots) the kernel reads when it runs.  Returns [B, 1, H, D] in
+    q's dtype.  The kernel on CUDA tensors (bfloat16 or float16), the plain
+    version on CPU tensors; head_dim 64 or 128 on both."""
     _check_shapes(q, k_cache, v_cache, length)
     if q.device.type == "cuda":
         return _decode_attention_kernel(q, k_cache, v_cache, length)
-    return _decode_attention_plain(q, k_cache, v_cache, length)
+    return _decode_attention_plain(q, k_cache, v_cache, int(length))
