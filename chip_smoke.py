@@ -3846,7 +3846,7 @@ def phase_pipeline_virtual() -> dict:
                             device="cuda", generator=mgen)
     moe_runs = {}
     for schedule in ("1f1b", "gpipe"):
-        step, init_all, _ = tpipe.make_moe_pipeline_train_step(
+        step, init_all, _ = tpipe.make_pipeline_train_step(
             mcfg, None, PIPE_MOE_MICRO, schedule=schedule, device="cuda",
             stages_in_process=PIPE_MOE_STAGES)
         run = _pipeline_run(step, init_all, mtokens,

@@ -1307,7 +1307,8 @@ def test_dryrun_world1_repeats_section_1b_bits(cuda):
     losses (every kernel on the mesh path, the second step's after the
     backward kernels and the 8-bit update) the same bits each run, those
     on random tokens within the reference's budget of the plain steps on
-    the CPU, and each of the six kernels launched in it."""
+    the CPU, each of the six training kernels launched in it, and the
+    decode kernel not: the dry run trains and never decodes."""
     from tpu_network_operator_torch import graft
 
     runs = [graft.dryrun_multichip(1) for _ in range(2)]
@@ -1315,7 +1316,9 @@ def test_dryrun_world1_repeats_section_1b_bits(cuda):
     for key in ("loss", "next_loss", "drift_losses"):
         assert first[key] == again[key], key
     assert first["drift"] < graft.DRIFT_TOL
-    assert all(n > 0 for n in first["launches"].values()), first["launches"]
+    trained = dict(first["launches"])
+    assert trained.pop("decode_attn") == 0, first["launches"]
+    assert all(n > 0 for n in trained.values()), first["launches"]
     assert runs[0]["lines"][-1] == graft.OK_LINE
 
 

@@ -278,7 +278,8 @@ def test_training_over_pipe_is_refused_by_name():
                                          r"through parallel\.pipeline\."
                                          r"make_pipeline_train_step"):
         tllama.Layout(tllama.LlamaConfig.tiny(), pipe)
-    with pytest.raises(ValueError, match="make_moe_pipeline_train_step"):
+    with pytest.raises(ValueError, match=r"parallel\.pipeline\."
+                                         r"make_pipeline_train_step"):
         tmoe.Layout(tmoe.MoEConfig.tiny(), pipe)
     # a pipeline stage's layout, and serving's, take the axis
     for kw in (dict(pipeline_stage=True), dict(serving=True)):

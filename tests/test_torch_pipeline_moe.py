@@ -1,4 +1,5 @@
-"""The port's MoE pipeline on gloo ranks against the reference's
+"""The port's MoE pipeline (``make_pipeline_train_step`` given a MoE
+config) on gloo ranks against the reference's
 ``make_moe_pipeline_train_step`` on the same number of CPU devices, from
 the same f32 parameters and tokens, as ``test_torch_pipeline_dense.py``
 holds the dense pipeline: the loss to 1e-5 relative, the gathered
@@ -45,7 +46,7 @@ def _rank(rank, world, tree, tokens):
     out = {}
     for name, (axes, schedule, seq_axis) in CASES.items():
         mesh = make_mesh(plan_axes(world, **axes), "cpu")
-        step, _, opt = tpipe.make_moe_pipeline_train_step(
+        step, _, opt = tpipe.make_pipeline_train_step(
             cfg, mesh, MICRO, seq_axis=seq_axis, schedule=schedule)
         params = tllama.shard_tree(tmoe.params_from_jax(tree, "cpu"),
                                    step.specs, mesh)

@@ -107,13 +107,6 @@ def _setup(family, layers=4, batch=8, seq=16, seed=0):
     return mod, cfg, params, tokens
 
 
-def _builder(family):
-    from tpu_network_operator_torch.parallel import pipeline as tpipe
-
-    return (tpipe.make_moe_pipeline_train_step if family == "moe"
-            else tpipe.make_pipeline_train_step)
-
-
 def _single_device(mod, cfg, params, tokens, micro):
     """(loss, grads): the dense ``loss_fn`` on the whole batch; for the
     MoE the mean over microbatches of ``loss_fn`` on each."""
@@ -150,8 +143,9 @@ def test_stages_in_process_give_the_single_device_gradients(family,
     mod, cfg, params, tokens = _setup(family)
     micro = 4
     loss_ref, grads_ref = _single_device(mod, cfg, params, tokens, micro)
-    step, _, _ = _builder(family)(cfg, None, micro, schedule=schedule,
-                                  device="cpu", stages_in_process=stages)
+    step, _, _ = tpipe.make_pipeline_train_step(
+        cfg, None, micro, schedule=schedule, device="cpu",
+        stages_in_process=stages)
     stored = tpipe.chunked_layers(params, step.v)
     loss, grads = step.grads_fn(stored, tokens)
     assert abs(loss.item() - loss_ref.item()) <= 1e-5 * abs(loss_ref.item())

@@ -200,12 +200,13 @@ def _whole(section: str, cfg, tree: Optional[Mapping], device):
     """A fresh whole parameter tree of ``section`` on ``device``: ``tree``
     (numpy, the reference's layout) or drawn from a CPU generator seeded
     0 (the reference seeds every section alike)."""
-    from .models import llama, moe
+    from .models import llama
+    from .models.convert import model
 
     if tree is not None:
         return llama.params_from_jax(tree, device)
-    model = moe if section == "3" else llama
-    whole = model.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    whole = model(cfg).init_params(cfg, torch.Generator().manual_seed(0),
+                                   "cpu")
     return llama.params_to(whole, device)
 
 
@@ -224,15 +225,18 @@ def _two_steps(step, params, state, batch) -> List[float]:
     return losses
 
 
-def _dense_step(cfg, mesh, dev, whole, tokens):
+def _mesh_step(cfg, mesh, dev, whole, tokens, *, make_attn, optimizer=None):
+    """The two steps of the plain train step of ``cfg``'s family on
+    ``mesh`` from this rank's shards of ``whole``: ``make_attn(mesh)``
+    (ring or Ulysses) the attention over a seq axis."""
     from .models import llama
-    from .parallel.ring import make_ring_attn_fn
+    from .models.convert import shard_params
     from .workload.common import batch_rows
 
-    attn = make_ring_attn_fn(mesh) if mesh.size("seq") > 1 else None
-    step, _, opt = llama.make_train_step(cfg, optimizer="adam8bit",
+    attn = make_attn(mesh) if mesh.size("seq") > 1 else None
+    step, _, opt = llama.make_train_step(cfg, optimizer=optimizer,
                                          device=dev, mesh=mesh, attn_fn=attn)
-    params = llama.shard_params(whole, cfg, mesh)
+    params = shard_params(whole, cfg, mesh)
     return _two_steps(step, params, opt.init(params),
                       batch_rows(tokens.to(dev), mesh))
 
@@ -261,19 +265,6 @@ def _pipeline_step(cfg, mesh, dev, whole, tokens, schedule):
                                                MICROBATCHES))
 
 
-def _moe_step(cfg, mesh, dev, whole, tokens):
-    from .models import moe
-    from .parallel.ulysses import make_ulysses_attn_fn
-    from .workload.common import batch_rows
-
-    attn = make_ulysses_attn_fn(mesh) if mesh.size("seq") > 1 else None
-    step, _, opt = moe.make_train_step(cfg, device=dev, mesh=mesh,
-                                       attn_fn=attn)
-    params = moe.shard_params(whole, cfg, mesh)
-    return _two_steps(step, params, opt.init(params),
-                      batch_rows(tokens.to(dev), mesh))
-
-
 def dryrun_rank(n: int, device, params: Optional[Mapping] = None,
                 dtype: Optional[torch.dtype] = None,
                 sections=SECTIONS) -> Dict:
@@ -296,6 +287,8 @@ def dryrun_rank(n: int, device, params: Optional[Mapping] = None,
 
     from .ops import _kernels
     from .parallel.mesh import make_mesh
+    from .parallel.ring import make_ring_attn_fn
+    from .parallel.ulysses import make_ulysses_attn_fn
 
     dev = torch.device(device)
     if dist.get_world_size() != n:
@@ -304,9 +297,12 @@ def dryrun_rank(n: int, device, params: Optional[Mapping] = None,
     params = params or {}
     plans = dryrun_plans(n)
     cfgs = section_configs(dtype)
-    steps = {"1": _dense_step, "1b": _dense_step,
+    dense_step = functools.partial(_mesh_step, make_attn=make_ring_attn_fn,
+                                   optimizer="adam8bit")
+    steps = {"1": dense_step, "1b": dense_step,
              "2": functools.partial(_pipeline_step, schedule="gpipe"),
-             "3": _moe_step}
+             "3": functools.partial(_mesh_step,
+                                    make_attn=make_ulysses_attn_fn)}
     out: Dict[str, Dict] = {}
     lines: List[str] = []
     for section in sections:
@@ -341,7 +337,7 @@ def dryrun_rank(n: int, device, params: Optional[Mapping] = None,
         if section == "1b":
             if dev.type == "cuda":
                 mixed = drift_tokens(cfg, tokens)
-                card = _dense_step(cfg, mesh, dev, tree(dev), mixed)
+                card = dense_step(cfg, mesh, dev, tree(dev), mixed)
                 plain = _plain_cpu_step(cfg, tree("cpu"), mixed)
                 res["drift_losses"] = {"card": card, "plain_cpu": plain}
                 res["drift"] = max(abs(a - b) for a, b in zip(card, plain))

@@ -39,6 +39,7 @@ from typing import Any, Dict, Iterator, Mapping, Optional
 import torch
 
 from .. import resolve_device
+from . import llama, moe
 from .llama import HybridLlamaConfig, LlamaConfig, Params
 from .moe import HybridMoEConfig, MoEConfig
 
@@ -380,25 +381,29 @@ def load_hf_checkpoint(path: str, dtype: torch.dtype = torch.bfloat16,
 # -- the cfg.json sidecar -----------------------------------------------------
 
 
+def model(cfg):
+    """The module of ``cfg``'s model family, picked by the config's type:
+    :mod:`.moe` for a MoE config, :mod:`.llama` otherwise.  The one place
+    that tells the families apart; the rest reads the module (its
+    ``Layout``, ``param_specs``, ``init_params``)."""
+    return moe if isinstance(cfg, MoEConfig) else llama
+
+
 def family(cfg) -> str:
-    return "llama" if isinstance(cfg, LlamaConfig) else "moe"
+    """The ``cfg.json`` tag of ``cfg``'s family: "moe" or "llama"."""
+    return "moe" if model(cfg) is moe else "llama"
 
 
 def param_specs(cfg) -> Params:
-    """The family's training layout (``llama`` or ``moe``
-    ``param_specs``)."""
-    from . import llama, moe
-
-    return (llama if family(cfg) == "llama" else moe).param_specs(cfg)
+    """The family's training layout (its ``param_specs``)."""
+    return model(cfg).param_specs(cfg)
 
 
 def shard_params(params: Params, cfg, mesh) -> Params:
     """This rank's shards of an imported (whole) tree in the family's
     training layout: the reference's ``assign_shardings``, each leaf cut
     by its :func:`param_specs` entry and this rank's part kept."""
-    from .llama import shard_tree
-
-    return shard_tree(params, param_specs(cfg), mesh)
+    return llama.shard_tree(params, param_specs(cfg), mesh)
 
 
 def cfg_to_json(cfg) -> str:

@@ -54,7 +54,7 @@ from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope_at
 from ..parallel import comm
 from .llama import (Layout, LlamaConfig, Params, check_no_window,
-                    rope_tables, unbind_layers)
+                    ffn_half, rope_tables, unbind_layers)
 
 
 def _prefill_flash_ok(cfg: LlamaConfig, pos, s: int, attn_len: int) -> bool:
@@ -153,7 +153,8 @@ def _attend(cfg: LlamaConfig, pos: int, q, k, v, ck, cv,
 def _block_with_cache(lay: Layout, cos, sin, pos, x, lp, ck, cv,
                       attn_len: Optional[int] = None, cks=None, cvs=None,
                       length=None):
-    """One block over cached keys/values; returns the new x.
+    """One block over cached keys/values; returns the new x.  Its FFN
+    half is the training layer's (:func:`.llama.ffn_half`).
 
     x: [B, s, H] new tokens at absolute positions [pos, pos + s);
     ck/cv: [B, max_len, Hkv, D] this layer's cache, written in place.
@@ -187,11 +188,7 @@ def _block_with_cache(lay: Layout, cos, sin, pos, x, lp, ck, cv,
             a = _attend(cfg, pos, q, k, v, ck, cv, attn_len, cks, cvs)
     x = x + comm.reduce_from(a.reshape(b, s, -1) @ lay.w(lp["wo"], 1),
                              lay.tp)
-
-    y = rms_norm(x, lp["ln_mlp"], cfg.rms_eps)
-    gated = (torch.nn.functional.silu(y @ lay.w(lp["w_gate"], 0))
-             * (y @ lay.w(lp["w_up"], 0)))
-    return x + comm.reduce_from(gated @ lay.w(lp["w_down"], 1), lay.tp)
+    return ffn_half(lay, x, lp)
 
 
 def forward_with_cache(

@@ -7,6 +7,9 @@ parameter layout is the reference's, so weights move between the two
 packages by name: a plain dict whose layer leaves are stacked ``[L, ...]``
 and whose projections are ``W[in, out]`` applied as ``x @ W``.  The layers
 run in a Python loop over the stacked leaves, unbound once per forward.
+That skeleton (embed, layers, final norm, logits, loss, train step) is
+written once, on :class:`Layout`, for both families: the MoE
+(``models/moe.py``) supplies only its block, its mesh draw and its specs.
 
 Both families (this one and ``models/moe.py``) also run the geometry of
 hybrid-attention models (:class:`HybridLlamaConfig`, ``HybridMoEConfig``):
@@ -408,9 +411,17 @@ class Layout:
     group here joins ranks that share it); the plain train step refuses a
     pipe axis.  The MoE's layout (``models/moe.py``) adds the experts.
 
+    A layout is also its model family: the decoder's skeleton is written
+    once here (:meth:`hidden`, :meth:`logits`, :meth:`loss`), over what a
+    family supplies: :meth:`block`, :meth:`draw`, :meth:`specs` and
+    ``aux_weight``, the weight of the blocks' aux loss (the dense block
+    gives none).
+
     Sliding-window layers run their attention on the whole local sequence
     (:func:`attention`): a windowed config refuses ring and Ulysses
     attention and pipeline stages (:func:`check_no_window`)."""
+
+    aux_weight = 0.0
 
     def __init__(self, cfg, mesh=None, attn_fn=None, serving: bool = False,
                  pipeline_stage: bool = False,
@@ -430,9 +441,8 @@ class Layout:
         if mesh.size("pipe") > 1 and not (serving or pipeline_stage):
             raise ValueError(
                 f"training over a 'pipe' axis runs through "
-                f"parallel.pipeline.make_pipeline_train_step (or "
-                f"make_moe_pipeline_train_step), not the plain train step; "
-                f"got {mesh.shape}"
+                f"parallel.pipeline.make_pipeline_train_step, not the plain "
+                f"train step; got {mesh.shape}"
             )
         t, n = mesh.size("tensor"), mesh.size("seq")
         if cfg.heads % t or cfg.ffn % t:
@@ -468,6 +478,28 @@ class Layout:
         over."""
         return param_specs(self.cfg)
 
+    def draw(self, generator: torch.Generator, device=None) -> Params:
+        """This process's part of a tree drawn from ``generator`` (which
+        lives on the device): the whole tree on ``device``, or on a mesh
+        the whole tree drawn on the mesh's device and this rank's shards
+        of :meth:`specs` kept, so a seed gives the same parameters at
+        every world size."""
+        if self.mesh is None:
+            return init_params(self.cfg, generator, device)
+        return shard_tree(init_params(self.cfg, generator, self.mesh.device),
+                          self.specs(), self.mesh)
+
+    def block(self, cos, sin, window: int = 0):
+        """One layer as ``fn(x, lp) -> (x, aux)``, under
+        ``cfg.remat_policy`` (:func:`_remat_block`) where ``cfg.remat``
+        and grad are on; the dense block gives no aux (None), and the
+        pair is made outside the checkpoint."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            layer = _remat_block(self, cos, sin, window)
+        else:
+            layer = functools.partial(_layer, self, cos, sin, window=window)
+        return lambda x, lp: (layer(x, lp), None)
+
     def w(self, leaf: torch.Tensor, fsdp_dim: int) -> torch.Tensor:
         """A layer leaf with its fsdp dim gathered."""
         return comm.gather_sum(leaf, self.fsdp, fsdp_dim)
@@ -494,6 +526,54 @@ class Layout:
             return tokens
         c = (tokens.shape[1] - 1) // self.seq_shards
         return tokens[:, self.seq_index * c:(self.seq_index + 1) * c + 1]
+
+    def hidden(self, params: Params, tokens: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(final-norm hidden states [B, S, hidden], the mean over the
+        layers of the blocks' aux losses, or None where the blocks give
+        none): everything before the vocab projection."""
+        cfg = self.cfg
+        x = torch.nn.functional.embedding(tokens, self.whole(params["embed"]))
+        x = x.to(cfg.dtype)
+        tables = rope_tables(cfg, tokens.shape[1] * self.seq_shards, x.device)
+        blocks = {w: self.block(*t, w) for w, t in tables.items()}
+        auxes = []
+        for lp, w in zip(unbind_layers(params), layer_windows(cfg)):
+            x, aux = blocks[w](x, lp)
+            if aux is not None:
+                auxes.append(aux)
+        x = rms_norm(x, params["ln_final"], cfg.rms_eps)
+        return x, torch.stack(auxes).mean() if auxes else None
+
+    def logits(self, params: Params, tokens: torch.Tensor
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(logits [B, S, vocab] f32, :meth:`hidden`'s aux): the vocab
+        projection in cfg.dtype, then widened."""
+        x, aux = self.hidden(params, tokens)
+        return (x @ self.whole(params["lm_head"])).float(), aux
+
+    def xent(self, lm_head: torch.Tensor, x: torch.Tensor,
+             tokens: torch.Tensor) -> torch.Tensor:
+        """Next-token cross entropy of final-norm hidden states x [B, S,
+        H] (tokens [B, S+1]): over the full logits, or in sequence chunks
+        of ``cfg.xent_chunk``."""
+        head = self.whole(lm_head)
+        if self.cfg.xent_chunk > 0:
+            return training.chunked_next_token_xent(x, head, tokens,
+                                                    self.cfg.xent_chunk)
+        return training.next_token_xent((x @ head).float(), tokens)
+
+    def loss(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        """Next-token cross entropy over [B, S] (tokens [B, S+1]), plus
+        ``aux_weight`` times the blocks' aux loss where they give one.  On
+        a mesh, ``tokens`` are this rank's rows and the result its share
+        of the global loss (:meth:`reduce_loss` sums the shares)."""
+        tokens = self.local_tokens(tokens)
+        x, aux = self.hidden(params, tokens[:, :-1])
+        loss = self.xent(params["lm_head"], x, tokens)
+        if aux is not None:
+            loss = loss + self.aux_weight * aux
+        return loss if self.loss_scale == 1.0 else loss * self.loss_scale
 
     def reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
         """The global token mean from every rank's share of it."""
@@ -583,14 +663,21 @@ def _attn_half(lay: Layout, cos, sin, x, lp, window: int = 0) -> torch.Tensor:
     return x + comm.reduce_from(out, lay.tp)
 
 
-def _layer(lay: Layout, cos, sin, x, lp, window: int = 0) -> torch.Tensor:
-    """One transformer block.  x: [B, S, H]; lp: this layer's params."""
-    x = _attn_half(lay, cos, sin, x, lp, window)
+def ffn_half(lay: Layout, x, lp) -> torch.Tensor:
+    """The FFN half of a dense block: x + SwiGLU(rms_norm(x)), the down
+    projection's partial sums all-reduced over tensor.  x: [B, S, H], the
+    post-attention residual; the training layer and the serving block
+    (``models/generate.py``) both end with it."""
     y = comm.copy_to(rms_norm(x, lp["ln_mlp"], lay.cfg.rms_eps), lay.tp)
     gate = y @ lay.w(lp["w_gate"], 0)
     up = y @ lay.w(lp["w_up"], 0)
     out = (torch.nn.functional.silu(gate) * up) @ lay.w(lp["w_down"], 1)
     return x + comm.reduce_from(out, lay.tp)
+
+
+def _layer(lay: Layout, cos, sin, x, lp, window: int = 0) -> torch.Tensor:
+    """One transformer block.  x: [B, S, H]; lp: this layer's params."""
+    return ffn_half(lay, _attn_half(lay, cos, sin, x, lp, window), lp)
 
 
 def _remat_block(lay: Layout, cos, sin, window: int = 0):
@@ -622,46 +709,23 @@ def _remat_block(lay: Layout, cos, sin, window: int = 0):
 
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
                    layout: Optional[Layout] = None) -> torch.Tensor:
-    """Final-norm hidden states [B, S, hidden]: everything before the
-    vocab projection.  With ``cfg.remat`` and grad enabled, each layer runs
-    under the configured remat policy.  ``layout``: this rank's part of a
-    sharded model (None: the whole model on one device)."""
-    lay = layout or Layout(cfg)
-    x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
-    x = x.to(cfg.dtype)
-    tables = rope_tables(cfg, tokens.shape[1] * lay.seq_shards, x.device)
-    remat = cfg.remat and torch.is_grad_enabled()
-    blocks = {w: _remat_block(lay, *t, w) if remat
-              else functools.partial(_layer, lay, *t, window=w)
-              for w, t in tables.items()}
-    for lp, w in zip(unbind_layers(params), layer_windows(cfg)):
-        x = blocks[w](x, lp)
-    return rms_norm(x, params["ln_final"], cfg.rms_eps)
+    """Final-norm hidden states [B, S, hidden] (:meth:`Layout.hidden`).
+    ``layout``: this rank's part of a sharded model (None: the whole model
+    on one device)."""
+    return (layout or Layout(cfg)).hidden(params, tokens)[0]
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             layout: Optional[Layout] = None) -> torch.Tensor:
-    """Logits [B, S, vocab] f32 (a matmul in cfg.dtype, then widened)."""
-    lay = layout or Layout(cfg)
-    x = forward_hidden(params, tokens, cfg, lay)
-    return (x @ lay.whole(params["lm_head"])).float()
+    """Logits [B, S, vocab] f32 (:meth:`Layout.logits`)."""
+    return (layout or Layout(cfg)).logits(params, tokens)[0]
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: LlamaConfig,
             layout: Optional[Layout] = None) -> torch.Tensor:
-    """Next-token cross entropy over [B, S]; tokens [B, S+1].  On a mesh,
-    ``tokens`` are this rank's rows and the result its share of the global
-    token mean (:meth:`Layout.reduce_loss` sums the shares)."""
-    lay = layout or Layout(cfg)
-    tokens = lay.local_tokens(tokens)
-    if cfg.xent_chunk > 0:
-        x = forward_hidden(params, tokens[:, :-1], cfg, lay)
-        loss = training.chunked_next_token_xent(
-            x, lay.whole(params["lm_head"]), tokens, cfg.xent_chunk)
-    else:
-        logits = forward(params, tokens[:, :-1], cfg, lay)
-        loss = training.next_token_xent(logits, tokens)
-    return loss if lay.loss_scale == 1.0 else loss * lay.loss_scale
+    """Next-token cross entropy over [B, S]; tokens [B, S+1]
+    (:meth:`Layout.loss`)."""
+    return (layout or Layout(cfg)).loss(params, tokens)
 
 
 def check_mesh_step(device: torch.device, mesh, optimizer) -> None:
@@ -682,39 +746,34 @@ def check_mesh_step(device: torch.device, mesh, optimizer) -> None:
         )
 
 
-def make_train_step(cfg: LlamaConfig, optimizer=None, device=None,
-                    mesh=None, attn_fn=None):
-    """(step, init_all, optimizer): ``step(params, opt_state, tokens) ->
-    (params, opt_state, loss)`` with the parameters and moments updated in
-    place; ``init_all(generator) -> (params, opt_state)``, the generator
-    living on the device.  ``device`` None means CUDA, and raises without
-    it.  ``optimizer``: an optimizer object, ``"adam8bit"``
-    (``optim8bit.adamw8bit()``, on a mesh built with it and
-    :func:`param_specs`) or None (``training.adamw(3e-4,
-    weight_decay=0.1)``).
+def make_train_step(cfg, optimizer=None, device=None, mesh=None,
+                    attn_fn=None):
+    """(step, init_all, optimizer) of either family, its :class:`Layout`
+    picked by the config's type (:func:`.convert.model`): ``step(params,
+    opt_state, tokens) -> (params, opt_state, loss)`` with the parameters
+    and moments updated in place; ``init_all(generator) -> (params,
+    opt_state)``, the generator living on the device.  ``device`` None
+    means CUDA, and raises without it.  ``optimizer``: an optimizer
+    object, ``"adam8bit"`` (``optim8bit.adamw8bit()``, on a mesh built
+    with it and the family's ``param_specs``) or None
+    (``training.adamw(3e-4, weight_decay=0.1)``).
 
     ``mesh`` (a :class:`..parallel.mesh.Mesh`) shards the step over its
-    ranks as :class:`Layout` says: ``init_all`` draws the whole tree from
-    the generator, as the single-device step does, and keeps this rank's
-    shards (so a seed gives the same parameters at every world size);
-    ``step`` takes this rank's rows of the batch (its coordinate along
-    data x fsdp) and returns the global token mean.  ``attn_fn``: the
+    ranks as the layout says: ``init_all`` keeps this rank's shards of the
+    tree a seed gives at every world size (:meth:`Layout.draw`); ``step``
+    takes this rank's rows of the batch (its coordinate along data x
+    fsdp) and returns the global loss.  ``attn_fn``: the
     sequence-parallel attention over the seq axis
     (:func:`..parallel.ring.make_ring_attn_fn`,
     :func:`..parallel.ulysses.make_ulysses_attn_fn`)."""
+    from .convert import model
+
     dev = resolve_device(device)
-    if mesh is None:
-        return training.make_train_step(
-            lambda params, tokens: loss_fn(params, tokens, cfg),
-            lambda generator: init_params(cfg, generator, dev),
-            optimizer,
-        )
-    check_mesh_step(dev, mesh, optimizer)
-    lay = Layout(cfg, mesh, attn_fn)
+    if mesh is not None:
+        check_mesh_step(dev, mesh, optimizer)
+    lay = model(cfg).Layout(cfg, mesh, attn_fn)
     return training.make_train_step(
-        lambda params, tokens: loss_fn(params, tokens, cfg, lay),
-        lambda generator: shard_params(
-            init_params(cfg, generator, mesh.device), cfg, mesh),
-        optimizer, reduce_grads=lay.reduce_grads,
-        reduce_loss=lay.reduce_loss, mesh=mesh, param_specs=lay.specs(),
+        lay.loss, lambda generator: lay.draw(generator, dev), optimizer,
+        reduce_grads=lay.reduce_grads, reduce_loss=lay.reduce_loss,
+        mesh=mesh, param_specs=lay.specs(),
     )

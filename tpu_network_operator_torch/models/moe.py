@@ -10,7 +10,10 @@ reference's: stacked ``[L, ...]`` layer leaves, expert leaves ``[L, E,
 ...]`` and ``x @ W`` with ``W[in, out]``, so :func:`params_from_jax`
 carries a JAX MoE tree across by name, the f32 router included.  The
 attention, the norms and RoPE are the dense model's (kernels on CUDA,
-their plain versions on the CPU).
+their plain versions on the CPU), and so is the decoder's skeleton
+(``models/llama.py`` ``Layout``): this family supplies its block, which
+also returns the router's aux loss, its shard-by-shard draw and its
+specs.
 
 On a mesh (:class:`Layout`) the attention half is the dense model's
 sharded layer, and the experts are sharded over ``expert`` with fsdp and
@@ -50,11 +53,8 @@ from .llama import (  # noqa: F401  (params_from_jax: the weight bridge)
     Hybrid,
     Params,
     init_weight,
-    layer_windows,
     params_from_jax,
-    rope_tables,
     shard_leaf,
-    unbind_layers,
 )
 
 ROUTINGS = ("capacity", "dropless")
@@ -298,6 +298,7 @@ class Layout(llama.Layout):
                 "all-to-all exchange it does not have (routing='capacity' "
                 "shards the experts)")
         self.experts = expert_range(cfg, mesh)
+        self.aux_weight = cfg.router_aux_weight
         super().__init__(cfg, mesh, attn_fn, **kw)
         if mesh is None:
             self.et = self.batch = None
@@ -309,6 +310,22 @@ class Layout(llama.Layout):
 
     def specs(self) -> Params:
         return param_specs(self.cfg)
+
+    def draw(self, generator: torch.Generator, device=None) -> Params:
+        """This process's part of a tree drawn from ``generator``: the
+        whole tree on ``device``, or on a mesh this rank's shards alone,
+        drawn slab by slab (:func:`init_params`)."""
+        mesh = self.mesh
+        return init_params(self.cfg, generator,
+                           device if mesh is None else mesh.device, mesh)
+
+    def block(self, cos, sin, window: int = 0):
+        """One MoE layer as ``fn(x, lp) -> (x, aux)``, the whole layer
+        under ``training.remat`` where ``cfg.remat`` and grad are on."""
+        layer = functools.partial(_layer, self, cos, sin, window=window)
+        if self.cfg.remat and torch.is_grad_enabled():
+            return training.remat(layer, self.cfg.remat_policy)
+        return layer
 
 
 # -- routing + expert layer ---------------------------------------------------
@@ -554,88 +571,24 @@ def _layer(lay: Layout, cos, sin, x, lp,
     return x + ff, aux
 
 
-# -- forward / loss / training ------------------------------------------------
-
-
-def forward_hidden(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
-                   layout: Optional[Layout] = None
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(final-norm hidden states [B, S, hidden], mean router aux loss over
-    the layers): everything before the vocab projection.  With
-    ``cfg.remat`` and grad enabled, each layer runs under
-    ``cfg.remat_policy``.  ``layout``: this rank's part of a sharded model
-    (None: the whole model on one device)."""
-    lay = layout or Layout(cfg)
-    x = torch.nn.functional.embedding(tokens, lay.whole(params["embed"]))
-    x = x.to(cfg.dtype)
-    blocks = {}
-    for w, (cos, sin) in rope_tables(cfg, tokens.shape[1], x.device).items():
-        blocks[w] = functools.partial(_layer, lay, cos, sin, window=w)
-        if cfg.remat and torch.is_grad_enabled():
-            blocks[w] = training.remat(blocks[w], cfg.remat_policy)
-    auxes = []
-    for lp, w in zip(unbind_layers(params), layer_windows(cfg)):
-        x, aux = blocks[w](x, lp)
-        auxes.append(aux)
-    x = rms_norm(x, params["ln_final"], cfg.rms_eps)
-    return x, torch.stack(auxes).mean()
+# -- views of the one skeleton (models/llama.py Layout) -----------------------
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
             layout: Optional[Layout] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(logits [B, S, vocab] f32, mean router aux loss): the vocab
-    projection in cfg.dtype, then widened."""
-    lay = layout or Layout(cfg)
-    x, aux = forward_hidden(params, tokens, cfg, lay)
-    return (x @ lay.whole(params["lm_head"])).float(), aux
+    """(logits [B, S, vocab] f32, mean router aux loss over the layers):
+    :meth:`.llama.Layout.logits`."""
+    return (layout or Layout(cfg)).logits(params, tokens)
 
 
 def loss_fn(params: Params, tokens: torch.Tensor, cfg: MoEConfig,
             layout: Optional[Layout] = None) -> torch.Tensor:
     """Next-token cross entropy over [B, S] (tokens [B, S+1]) plus
-    ``cfg.router_aux_weight`` times the router's load-balancing loss.  On
-    a mesh, ``tokens`` are this rank's rows and the result its share of
-    the global loss (:meth:`Layout.reduce_loss` sums the shares)."""
-    lay = layout or Layout(cfg)
-    if cfg.xent_chunk > 0:
-        x, aux = forward_hidden(params, tokens[:, :-1], cfg, lay)
-        ce = training.chunked_next_token_xent(
-            x, lay.whole(params["lm_head"]), tokens, cfg.xent_chunk)
-    else:
-        logits, aux = forward(params, tokens[:, :-1], cfg, lay)
-        ce = training.next_token_xent(logits, tokens)
-    loss = ce + cfg.router_aux_weight * aux
-    return loss if lay.loss_scale == 1.0 else loss * lay.loss_scale
+    ``cfg.router_aux_weight`` times the router's load-balancing loss
+    (:meth:`.llama.Layout.loss`)."""
+    return (layout or Layout(cfg)).loss(params, tokens)
 
 
-def make_train_step(cfg: MoEConfig, optimizer=None, device=None, mesh=None,
-                    attn_fn=None):
-    """(step, init_all, optimizer) with :func:`.llama.make_train_step`'s
-    contract (``device`` None means CUDA, and raises without it;
-    ``optimizer`` an optimizer object, ``"adam8bit"`` or None for
-    ``training.adamw(3e-4, weight_decay=0.1)``).  The attention is the
-    dense model's route: flash where
-    :func:`..ops.flash_attention.use_flash` passes, plain otherwise.
-
-    ``mesh`` shards the step as :class:`Layout` says, the experts over
-    ``expert``: ``init_all`` draws this rank's shards alone
-    (:func:`init_params`), the same tree at every world size; ``step``
-    takes this rank's rows (its coordinate along data x fsdp) and returns
-    the global loss.  ``attn_fn``: ring or Ulysses attention over the seq
-    axis."""
-    dev = resolve_device(device)
-    if mesh is None:
-        return training.make_train_step(
-            lambda params, tokens: loss_fn(params, tokens, cfg),
-            lambda generator: init_params(cfg, generator, dev),
-            optimizer,
-        )
-    llama.check_mesh_step(dev, mesh, optimizer)
-    lay = Layout(cfg, mesh, attn_fn)
-    return training.make_train_step(
-        lambda params, tokens: loss_fn(params, tokens, cfg, lay),
-        lambda generator: init_params(cfg, generator, mesh.device, mesh),
-        optimizer, reduce_grads=lay.reduce_grads,
-        reduce_loss=lay.reduce_loss, mesh=mesh, param_specs=lay.specs(),
-    )
+# the one train step: the config's type picks this family's Layout
+make_train_step = llama.make_train_step

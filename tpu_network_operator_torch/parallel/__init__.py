@@ -40,7 +40,4 @@ from .mesh import (  # noqa: F401
     validate_axis_order,
 )
 
-from .pipeline import (  # noqa: F401
-    make_moe_pipeline_train_step,
-    make_pipeline_train_step,
-)
+from .pipeline import make_pipeline_train_step  # noqa: F401

@@ -418,14 +418,13 @@ class PipelineStep:
     the leaf's dtype).  ``stats`` holds the last call's peak count of
     live forward-unit graphs, per stage."""
 
-    def __init__(self, cfg, family: str, mesh, n_micro: int, schedule: str,
+    def __init__(self, cfg, mesh, n_micro: int, schedule: str,
                  virtual_stages: int, seq_axis, attn_fn, device,
                  n_stages: int, optimizer):
-        from ..models import llama, moe, training
+        from ..models import training
+        from ..models.convert import model
 
         self.cfg, self.mesh, self.M = cfg, mesh, n_micro
-        self.family = family
-        self.model = moe if family == "moe" else llama
         self.S = n_stages
         self.schedule = schedule
         self.use_1f1b, self.v = _parse_schedule(schedule, virtual_stages)
@@ -444,48 +443,23 @@ class PipelineStep:
             raise ValueError(f"seq_axis must be None or 'seq', got "
                              f"{seq_axis!r}")
         self.device = device
-        self.specs = pipeline_specs(self.model.param_specs(cfg), self.v)
+        # the family's layout of one stage (its pipe coordinate's sub-mesh)
+        seq = mesh is not None and seq_axis is not None
+        self.layout = model(cfg).Layout(cfg, mesh, None if seq else attn_fn,
+                                        pipeline_stage=True, seq_parallel=seq)
+        self.seq_size = mesh.size("seq") if seq else 1
+        self.specs = pipeline_specs(self.layout.specs(), self.v)
         self.optimizer = training.resolve_optimizer(optimizer, mesh,
                                                     self.specs)
         self.stats: Dict[str, List[int]] = {}
-        if mesh is None:
-            self.layout = self.model.Layout(cfg, attn_fn=attn_fn)
-            self.seq_size = 1
-        else:
-            self.layout = self.model.Layout(
-                cfg, mesh, None if seq_axis else attn_fn,
-                pipeline_stage=True, seq_parallel=bool(seq_axis))
-            self.seq_size = mesh.size("seq") if seq_axis else 1
 
     # -- the stage's pieces
 
-    def _block(self):
-        from ..models import training
-
-        cfg, lay = self.cfg, self.layout
-        cos, sin = self._rope
-        if self.family == "moe":
-            block = functools.partial(self.model._layer, lay, cos, sin)
-            if cfg.remat:
-                block = training.remat(block, cfg.remat_policy)
-            return block
-        if cfg.remat:
-            layer = self.model._remat_block(lay, cos, sin)
-        else:
-            layer = functools.partial(self.model._layer, lay, cos, sin)
-        return lambda x, lp: (layer(x, lp), None)
-
     def _xent(self, shared, y, tok):
-        from ..models import training
         from ..ops.norms import rms_norm
 
-        cfg, lay = self.cfg, self.layout
-        z = rms_norm(y, shared["ln_final"], cfg.rms_eps)
-        head = lay.whole(shared["lm_head"])
-        if cfg.xent_chunk > 0:
-            return training.chunked_next_token_xent(z, head, tok,
-                                                    cfg.xent_chunk)
-        return training.next_token_xent((z @ head).float(), tok)
+        z = rms_norm(y, shared["ln_final"], self.cfg.rms_eps)
+        return self.layout.xent(shared["lm_head"], z, tok)
 
     # -- the entry points
 
@@ -511,15 +485,15 @@ class PipelineStep:
             lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                   device=p.device), params)
         shared = {k: params[k].detach().requires_grad_() for k in SHARED}
-        aux_weight = getattr(cfg, "router_aux_weight", 0.0)
         # the state of this call that its stages share
         run = SimpleNamespace(
             cfg=cfg, layout=lay, params=params, acc=acc, shared=shared,
             tokens=micro, n_stages=self.S, v=self.v, V=self.V,
-            depth=min(self.V + 1, M), block=self._block,
+            depth=min(self.V + 1, M),
+            block=lambda: lay.block(*self._rope),
             xent=functools.partial(self._xent, shared),
             loss_scale=lay.loss_scale / M,
-            aux_scale=aux_weight * lay.loss_scale / (cfg.layers * M),
+            aux_scale=lay.aux_weight * lay.loss_scale / (cfg.layers * M),
             loss_acc=torch.zeros((), dtype=torch.float32,
                                  device=tokens.device),
         )
@@ -575,30 +549,52 @@ class PipelineStep:
         the family's single-device ``init_params`` draws it, in the
         schedule's stored layout, and on a mesh this rank's shards (the
         same tree at every world size)."""
-        from ..models import llama
+        from ..models.llama import shard_leaf
 
-        cfg, mesh = self.cfg, self.mesh
-        if mesh is None:
-            params = chunked_layers(
-                self.model.init_params(cfg, generator, self.device), self.v)
-        elif self.family == "moe":
-            # this rank's shards of everything but the pipe axis, slab by
-            # slab, then its stage's layers
-            params = chunked_layers(self.model.init_params(
-                cfg, generator, mesh.device, mesh), self.v)
+        mesh = self.mesh
+        # this rank's shards of everything but the pipe axis, as the
+        # family's layout draws them, then its stage's layers
+        params = chunked_layers(self.layout.draw(generator, self.device),
+                                self.v)
+        if mesh is not None:
             lead = ("pipe",) if self.v == 1 else (None, "pipe")
             params = {**params, "layers": {
-                n: llama.shard_leaf(a, lead, mesh)
+                n: shard_leaf(a, lead, mesh)
                 for n, a in params["layers"].items()}}
-        else:
-            params = llama.shard_tree(chunked_layers(
-                llama.init_params(cfg, generator, mesh.device), self.v),
-                self.specs, mesh)
         return params, self.optimizer.init(params)
 
 
-def _make(cfg, family, mesh, n_microbatches, optimizer, attn_fn, seq_axis,
-          schedule, virtual_stages, device, stages_in_process):
+def make_pipeline_train_step(cfg, mesh=None, n_microbatches: int = 4,
+                             optimizer=None, attn_fn: Optional[Callable] =
+                             None, seq_axis: Optional[str] = None,
+                             schedule: str = "gpipe",
+                             virtual_stages: int = 2, *, device=None,
+                             stages_in_process: int = 1):
+    """Pipeline-parallel training step over the mesh's ``pipe`` axis, of
+    either family (the config's type picks it, as
+    :func:`..models.llama.make_train_step` does): (step, init_all,
+    optimizer), with the plain step's contract; ``step`` is a
+    :class:`PipelineStep`, whose ``grads_fn`` gives (loss, grads) alone.
+
+    Composes with data / fsdp (the batch), tensor (heads / ffn), for the
+    MoE expert (each stage's MoE layout) and, with ``seq_axis="seq"``,
+    ring sequence parallelism inside each stage (the activations each seq
+    rank's chunk, rope at its absolute positions), on every schedule.
+    ``schedule``: "gpipe", "1f1b" or "interleaved" (``virtual_stages``
+    chunks a stage, layers stored ``[v, L/v, ...]``).  ``optimizer``: an
+    optimizer object, ``"adam8bit"`` (built with the mesh and the
+    pipeline's specs) or None (``training.adamw(3e-4,
+    weight_decay=0.1)``).  ``attn_fn``: the stage's attention (default:
+    flash where it takes the shape, plain otherwise).  The MoE's router
+    aux loss is the reference's microbatched estimator: the mean of every
+    (layer, microbatch) unit's aux, each computed on that microbatch's
+    global rows, and with ``seq_axis`` on each seq shard's positions
+    (routing groups local to the shard, capacity by its length).
+
+    ``mesh`` None holds ``stages_in_process`` stages in this process on
+    ``device`` (None means CUDA), handing activations and cotangents
+    between them in place of the pipe axis's hops: the same executor over
+    the same tables, for one card."""
     from ..models import llama
 
     if mesh is None:
@@ -608,56 +604,6 @@ def _make(cfg, family, mesh, n_microbatches, optimizer, attn_fn, seq_axis,
         dev = mesh.device if device is None else resolve_device(device)
         llama.check_mesh_step(dev, mesh, optimizer)
         n_stages = mesh.size("pipe")
-    step = PipelineStep(cfg, family, mesh, n_microbatches, schedule,
-                        virtual_stages, seq_axis, attn_fn, dev, n_stages,
-                        optimizer)
+    step = PipelineStep(cfg, mesh, n_microbatches, schedule, virtual_stages,
+                        seq_axis, attn_fn, dev, n_stages, optimizer)
     return step, step.init_all, step.optimizer
-
-
-def make_pipeline_train_step(cfg, mesh=None, n_microbatches: int = 4,
-                             optimizer=None, attn_fn: Optional[Callable] =
-                             None, seq_axis: Optional[str] = None,
-                             schedule: str = "gpipe",
-                             virtual_stages: int = 2, *, device=None,
-                             stages_in_process: int = 1):
-    """Pipeline-parallel Llama training step over the mesh's ``pipe``
-    axis: (step, init_all, optimizer), with the plain step's contract
-    (``models/llama.py`` ``make_train_step``); ``step`` is a
-    :class:`PipelineStep`, whose ``grads_fn`` gives (loss, grads) alone.
-
-    Composes with data / fsdp (the batch), tensor (heads / ffn) and, with
-    ``seq_axis="seq"``, ring sequence parallelism inside each stage (the
-    activations each seq rank's chunk, rope at its absolute positions),
-    on every schedule.  ``schedule``: "gpipe", "1f1b" or "interleaved"
-    (``virtual_stages`` chunks a stage, layers stored ``[v, L/v, ...]``).
-    ``optimizer``: an optimizer object, ``"adam8bit"`` (built with the
-    mesh and the pipeline's specs) or None (``training.adamw(3e-4,
-    weight_decay=0.1)``).  ``attn_fn``: the stage's attention (default:
-    flash where it takes the shape, plain otherwise).
-
-    ``mesh`` None holds ``stages_in_process`` stages in this process on
-    ``device`` (None means CUDA), handing activations and cotangents
-    between them in place of the pipe axis's hops: the same executor over
-    the same tables, for one card."""
-    return _make(cfg, "llama", mesh, n_microbatches, optimizer, attn_fn,
-                 seq_axis, schedule, virtual_stages, device,
-                 stages_in_process)
-
-
-def make_moe_pipeline_train_step(cfg, mesh=None, n_microbatches: int = 4,
-                                 optimizer=None,
-                                 attn_fn: Optional[Callable] = None,
-                                 seq_axis: Optional[str] = None,
-                                 schedule: str = "gpipe",
-                                 virtual_stages: int = 2, *, device=None,
-                                 stages_in_process: int = 1):
-    """Pipeline-parallel MoE training step: stages over ``pipe``, experts
-    over ``expert`` (each stage's MoE layout), the batch over data x fsdp,
-    :func:`make_pipeline_train_step`'s contract and schedules.  The router
-    aux loss is the reference's microbatched estimator: the mean of every
-    (layer, microbatch) unit's aux, each computed on that microbatch's
-    global rows, and with ``seq_axis`` on each seq shard's positions
-    (routing groups local to the shard, capacity by its length)."""
-    return _make(cfg, "moe", mesh, n_microbatches, optimizer, attn_fn,
-                 seq_axis, schedule, virtual_stages, device,
-                 stages_in_process)

@@ -18,14 +18,6 @@ from .common import (batch_rows, build_mesh, emit, init_distributed,
                      moe_presets, pick_preset, sync)
 
 
-def _train_step_factory(family: str):
-    if family == "moe":
-        from ..models.moe import make_train_step
-    else:
-        from ..models.llama import make_train_step
-    return make_train_step
-
-
 def check_train_flags(args) -> None:
     """The reference's refusals of ``train``'s flags, before any process
     group starts: an axis the model would not use, Ulysses inside the
@@ -45,16 +37,12 @@ def check_train_flags(args) -> None:
 
 def _pipeline_step(args, cfg, mesh, optimizer, device):
     """The pipeline's (step, init_all, optimizer) over ``--pipe``."""
-    from ..parallel.pipeline import (make_moe_pipeline_train_step,
-                                     make_pipeline_train_step)
+    from ..parallel.pipeline import make_pipeline_train_step
 
-    make = (make_moe_pipeline_train_step if args.model == "moe"
-            else make_pipeline_train_step)
-    return make(cfg, mesh, n_microbatches=args.microbatches,
-                optimizer=optimizer,
-                seq_axis="seq" if args.seq > 1 else None,
-                schedule=args.pp_schedule,
-                virtual_stages=args.virtual_stages, device=device)
+    return make_pipeline_train_step(
+        cfg, mesh, n_microbatches=args.microbatches, optimizer=optimizer,
+        seq_axis="seq" if args.seq > 1 else None, schedule=args.pp_schedule,
+        virtual_stages=args.virtual_stages, device=device)
 
 
 def _checkpointer(args, cfg, mesh, params, optimizer, specs=None):
@@ -112,7 +100,9 @@ def cmd_train(args) -> int:
                                              device)
         micro, specs = args.microbatches, step.specs
     else:
-        step, init_all, opt = _train_step_factory(args.model)(
+        from ..models.llama import make_train_step
+
+        step, init_all, opt = make_train_step(
             cfg, optimizer=optimizer, device=device, mesh=mesh,
             attn_fn=_sp_attn_fn(args, mesh))
     params, opt_state = init_all(torch.Generator(device).manual_seed(0))
