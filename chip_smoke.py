@@ -178,7 +178,9 @@ Phases, each printing JSON lines; any failure exits non-zero:
     backward outputs), kernel 6 per virtual rank, the decode-attention
     kernel (kernel 7, checked and timed right after phase 3) at the
     benchmark's decode cell, at ``llama3-1b``'s serving shape and at batch
-    4, where its keys split, and its launches in every path above.
+    4, where its keys split, the fused AdamW kernel (kernel 8, checked and
+    timed right after phase 3) at the dense benchmark cell's largest leaf
+    and over its 24-layer tree, and its launches in every path above.
 
 Phase 3 also holds the 8-bit AdamW kernel to its plain version over three
 steps with carried state, bit for bit, each leaf shape alone, the 12
@@ -187,6 +189,10 @@ leaf shapes (an f32 router, a bf16 expert slice); the table gives its time
 at the largest leaf, over the 12 leaves one launch each and in one launch,
 and inside the profiled adam8 step.  Phase 8 also counts the matmuls that
 the "ffn" policy reruns in the layers' backward (3 a layer).
+
+    python3 chip_smoke.py --adamw
+
+builds the kernels and checks and times only kernel 8 (``phase_adamw``);
 
     python3 chip_smoke.py --adam8-leaves
 
@@ -407,6 +413,18 @@ DESIGN = {
                    "division for an all-zero block, the intrinsics "
                    "otherwise; whole-row or unaligned leaves take a "
                    "two-pass row loop in the same kernel",
+    "adamw_fused": "one launch for up to 64 leaves of any of f32, bf16 and "
+                   "f16 (a leaf table and per-dtype constants passed by "
+                   "value, __grid_constant__); a persistent grid walks the "
+                   "leaves' 16-byte units grid-stride, a thread a unit, the "
+                   "next unit's loads of p, g, m and v in flight during "
+                   "this one's math (g non-coherent, the rest evict-first "
+                   "and streamed back); bf16 a word (two values) at a time: "
+                   "the products of two bf16 values by bf16x2 FMA, sums in "
+                   "f32 packed by one conversion, the root and quotient "
+                   "fast paths written out where no step can underflow or "
+                   "overflow; unaligned leaves and a leaf's short last unit "
+                   "a scalar loop on the intrinsics",
     "decode_attn": "a block per (batch row, kv-head, 16 q-heads of the GQA "
                    "group); K/V read in place through the cache's strides, "
                    "exactly the filled keys, 64-key tiles in a 3-stage "
@@ -1253,7 +1271,8 @@ def phase_generate():
     want = {"flash_fwd": cfg.layers,
             "rms_norm_fwd": (2 * cfg.layers + 1) * forward_calls,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
-            "adam8_fused": 0, "decode_attn": cfg.layers * (NEW_TOKENS - 1)}
+            "adam8_fused": 0, "decode_attn": cfg.layers * (NEW_TOKENS - 1),
+            "adamw_fused": 0}
     check(launches == want, f"kernel launches {launches}, expected {want}")
     emit({"phase": "generate", "preset": "llama3-1b", "layers": cfg.layers,
           "params": cfg.num_params(), "batch": BATCH, "prompt": PROMPT,
@@ -1386,7 +1405,7 @@ def phase_train() -> dict:
         step, params, opt_state, tokens, TRAIN_STEPS)
     peak = torch.cuda.max_memory_allocated()
 
-    want = {**remat_launches(n), "adam8_fused": 0}
+    want = {**remat_launches(n), "adam8_fused": 0, "adamw_fused": 1}
     check(all(p == want for p in per_step),
           f"train-step launches {per_step}, expected {want} per step")
     check(all(math.isfinite(v) for v in losses), f"train losses {losses}")
@@ -1636,7 +1655,7 @@ def phase_train_adam8(name: str) -> dict:
     # the kernels run as under "full" remat; one update launch for every
     # TABLE_LEAVES leaves (1 at llama3-1b's 12)
     updates = -(-len(leaves) // optim8bit.TABLE_LEAVES)
-    want = {**remat_launches(n), "adam8_fused": updates}
+    want = {**remat_launches(n), "adam8_fused": updates, "adamw_fused": 0}
     check(all(p == want for p in per_step),
           f"adam8 train-step launches {per_step}, expected {want} per step")
     check(all(math.isfinite(v) for v in losses), f"adam8 losses {losses}")
@@ -1762,6 +1781,100 @@ def phase_adam8_leaves(name: str) -> None:
     torch.cuda.empty_cache()
 
 
+ADAMW_OPS = 25   # f32 operations per value (moments, root, quotient, update)
+# the mistral-7b-l24 benchmark cell's 12 leaves: embed, the 24 layers'
+# wq, wk, wv, wo, w_gate, w_up, w_down, the two norms, the final norm,
+# lm_head (5.503e9 values)
+ADAMW_CELL = (24, 4096, 14336, 32768, 1024)
+
+
+def adamw_cell_leaves(gen) -> list:
+    """(p, g, m, v) of the dense cell's leaves in bf16, the moments from
+    zero, three in four embedding rows without a gradient (tokens absent
+    from a 2 x 4096 batch of a 32,768 vocabulary)."""
+    n, h, f, v, kv = ADAMW_CELL
+    shapes = [(v, h), (n, h, h), (n, h, kv), (n, h, kv), (n, h, h),
+              (n, h, f), (n, h, f), (n, f, h), (n, h), (n, h), (h,), (h, v)]
+    leaves = []
+    for i, shape in enumerate(shapes):
+        p = (torch.randn(shape, device="cuda", generator=gen) * 0.02).bfloat16()
+        g = (torch.randn(shape, device="cuda", generator=gen) * 1e-4
+             ).bfloat16()
+        if i == 0:
+            g[torch.rand(v, device="cuda", generator=gen) < 0.78] = 0
+        leaves.append((p, g, torch.zeros_like(p), torch.zeros_like(p)))
+    return leaves
+
+
+def adamw_times(name: str) -> dict:
+    """Kernel 8 (``training.adamw_fused``) at the dense cell's largest leaf
+    (w_gate, [24, 4096, 14336]) and over its whole 24-layer tree: the same
+    bits as the eager sequence (``adamw_plain``) over two steps at the
+    leaf, one launch a call, device ms against the bytes bound (p, g, m
+    and v read, p, m and v written: 14 bytes a value), the eager
+    sequence's ms and ``torch._fused_adamw_``'s on the same tensors (a
+    yardstick the port never calls: PyTorch's multi-tensor AdamW, in f32
+    registers with one rounding a tensor, so not the same bits)."""
+    bw, _, f32_peak = measure.peaks(name)
+    gen = torch.Generator("cuda").manual_seed(SEED + 17)
+    opt = training.adamw(3e-4, weight_decay=0.1)
+    leaves = adamw_cell_leaves(gen)
+    big = leaves[5]
+    plain = (big[0].clone(), big[1], big[2].clone(), big[3].clone())
+    for count in (1, 2):
+        k = opt.consts(count, {torch.bfloat16})
+        _kernels.reset_launches()
+        training.adamw_fused([big], k)
+        check(_kernels.LAUNCHES["adamw_fused"] == 1,
+              f"adamw_fused launched {_kernels.LAUNCHES['adamw_fused']} "
+              "times for one leaf")
+        training.adamw_plain([plain], k)
+    same = [torch.equal(bits(a), bits(b))
+            for a, b in zip((big[0], big[2], big[3]),
+                            (plain[0], plain[2], plain[3]))]
+    check(all(same), f"adamw_fused against adamw_plain at the largest leaf: "
+          f"p, m, v the same bits {same}")
+    del plain
+    torch.cuda.empty_cache()
+    k = opt.consts(3, {torch.bfloat16})
+
+    def library(group):
+        ps, gs, ms, vs = (list(t) for t in zip(*group))
+        steps = [torch.ones((), device="cuda") for _ in ps]
+        return lambda: torch._fused_adamw_(
+            ps, gs, ms, vs, [], steps, lr=3e-4, beta1=0.9, beta2=0.999,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False)
+
+    def row(group):
+        values = sum(p.numel() for p, *_ in group)
+        nbytes = sum(7 * p.numel() * p.element_size() for p, *_ in group)
+        _kernels.reset_launches()
+        training.adamw_fused(group, k)
+        launches = _kernels.LAUNCHES["adamw_fused"]
+        return {"values": values, "launches_per_call": launches,
+                "ms": time_ms(lambda: training.adamw_fused(group, k)),
+                **_bound(nbytes, ADAMW_OPS * values, bw, f32_peak),
+                "plain_ms": time_ms_eager(
+                    lambda: training.adamw_plain(group, k), iters=2, reps=3),
+                "library_ms": time_ms_eager(library(group), iters=3, reps=3)}
+
+    leaf = {"shape": list(big[0].shape), **row([big])}
+    tree = {"leaves": len(leaves), **row(leaves)}
+    for r in (leaf, tree):
+        r["roofline"] = 100.0 * r["bound_ms"] / r["ms"]
+    del leaves, big
+    torch.cuda.empty_cache()
+    return {"largest_leaf": leaf, "cell_tree": tree,
+            "same_bits_as_plain": all(same)}
+
+
+def phase_adamw(name: str) -> dict:
+    """:func:`adamw_times`, printed."""
+    out = adamw_times(name)
+    emit({"phase": "adamw", **out})
+    return out
+
+
 def phase_remat_ffn() -> None:
     """The llama3-1b+ffn+adam8 cell's step, profiled over 3 steps after a
     warm-up (device ms per step by group), and the aten::mm calls of its
@@ -1838,7 +1951,7 @@ def phase_train_moe(name: str) -> dict:
     params, opt_state, losses, step_s, per_step, first_s = run_steps(
         step, params, opt_state, tokens, MOE_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    want = {**remat_launches(n), "adam8_fused": 0}
+    want = {**remat_launches(n), "adam8_fused": 0, "adamw_fused": 1}
     check(all(p == want for p in per_step),
           f"MoE train-step launches {per_step}, expected {want} per step")
     check(all(math.isfinite(v) for v in losses), f"MoE losses {losses}")
@@ -1885,7 +1998,7 @@ def phase_train_moe(name: str) -> dict:
         step, params, opt_state, tokens, MOE_A8_STEPS)
     a8_peak = torch.cuda.max_memory_allocated()
     updates = -(-len(leaves) // optim8bit.TABLE_LEAVES)
-    want8 = {**remat_launches(n), "adam8_fused": updates}
+    want8 = {**remat_launches(n), "adam8_fused": updates, "adamw_fused": 0}
     check(all(p == want8 for p in a8_steps),
           f"MoE adam8 launches {a8_steps}, expected {want8} per step")
     check(all(math.isfinite(v) for v in a8_losses),
@@ -2271,7 +2384,8 @@ def phase_import_llama() -> dict:
     gen_s = time.perf_counter() - t0
     want = {"flash_fwd": n, "rms_norm_fwd": (2 * n + 1) * NEW_TOKENS,
             "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "rms_norm_bwd": 0,
-            "adam8_fused": 0, "decode_attn": n * (NEW_TOKENS - 1)}
+            "adam8_fused": 0, "decode_attn": n * (NEW_TOKENS - 1),
+            "adamw_fused": 0}
     check(launches == want, f"import generate launches {launches}, "
           f"expected {want}")
     check(bool(torch.equal(out, ref)),
@@ -2297,7 +2411,7 @@ def phase_import_llama() -> dict:
 
     losses, train_launches = kernel_launches_of(train2)
     want = {k: 2 * v for k, v in remat_launches(n).items()}
-    want["adam8_fused"] = 2
+    want["adam8_fused"], want["adamw_fused"] = 2, 0
     check(train_launches == want, f"import train launches {train_launches}, "
           f"expected {want}")
     check(all(math.isfinite(v) for v in losses) and losses[1] < losses[0],
@@ -2480,7 +2594,8 @@ def phase_remat_ffn_offload() -> dict:
     check(all(same.values()) and same_state,
           f"ffn_offload's step differs from ffn's: "
           f"{[k for k, v in same.items() if not v]}, state {same_state}")
-    want = {**remat_launches(cfg.layers), "adam8_fused": 1}
+    want = {**remat_launches(cfg.layers), "adam8_fused": 1,
+            "adamw_fused": 0}
     check(launches == want, f"ffn_offload launches {launches}, "
           f"expected {want}")
     del params2, state2
@@ -2615,7 +2730,8 @@ def phase_mesh_world1() -> dict:
                 training.tree_leaves(single["params"])))
         del single["params"], meshed["params"]
         torch.cuda.empty_cache()
-        want = {**remat_launches(cfg.layers), "adam8_fused": 0}
+        want = {**remat_launches(cfg.layers), "adam8_fused": 0,
+                "adamw_fused": 1}
         check(all(p == want for p in meshed["per_step"]),
               f"mesh train-step launches {meshed['per_step']}, expected "
               f"{want} per step")
@@ -2654,7 +2770,8 @@ def phase_mesh_world1() -> dict:
                     "rms_norm_fwd": (2 * gcfg.layers + 1) * MESH_NEW_TOKENS,
                     "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                     "rms_norm_bwd": 0, "adam8_fused": 0,
-                    "decode_attn": gcfg.layers * (MESH_NEW_TOKENS - 1)}
+                    "decode_attn": gcfg.layers * (MESH_NEW_TOKENS - 1),
+                    "adamw_fused": 0}
         check(gen_launches == want_gen,
               f"mesh generate launches {gen_launches}, expected {want_gen}")
     finally:
@@ -2810,7 +2927,8 @@ def phase_mesh_world1_moe() -> dict:
                        training.tree_leaves(single["params"]))}
     del single["params"], meshed["params"]
     torch.cuda.empty_cache()
-    want = {**remat_launches(cfg.layers), "adam8_fused": 0}
+    want = {**remat_launches(cfg.layers), "adam8_fused": 0,
+            "adamw_fused": 1}
     emit({"phase": "mesh_world1_moe", "backend": backend, "mesh": mesh.shape,
           "preset": "moe:small", "layers": cfg.layers,
           "params": cfg.num_params(), "batch": MOE_BATCH, "seq": MOE_SEQ,
@@ -3048,7 +3166,8 @@ def phase_mesh_world1_adam8() -> dict:
             n_state = len(meshed["state"])
             del single["state"], meshed["state"]
             torch.cuda.empty_cache()
-            want = {**remat_launches(cfg.layers), "adam8_fused": 1}
+            want = {**remat_launches(cfg.layers), "adam8_fused": 1,
+                    "adamw_fused": 0}
             emit({"phase": "mesh_world1_adam8", "preset": tree,
                   "mesh": mesh.shape, "layers": cfg.layers,
                   "remat_policy": cfg.remat_policy, "batch": batch,
@@ -3203,7 +3322,8 @@ def phase_checkpoint_mesh() -> dict:
           f"a one-device checkpoint through the mesh changed {differ_back}")
     check(loss_resumed == loss_3,
           f"resumed loss {loss_resumed} != uninterrupted {loss_3}")
-    check(launches == {**remat_launches(cfg.layers), "adam8_fused": 1},
+    check(launches == {**remat_launches(cfg.layers), "adam8_fused": 1,
+                       "adamw_fused": 0},
           f"the resumed mesh step's launches {launches}")
     return launches
 
@@ -3776,7 +3896,7 @@ def phase_pipeline_virtual() -> dict:
     names = list(_leaf_names(params))
     # per microbatch, the single-device step's launches (full remat)
     want = {k: m * v for k, v in remat_launches(n).items()}
-    want["adam8_fused"] = 0
+    want["adam8_fused"], want["adamw_fused"] = 0, 1
     runs, counts = {}, {}
     for schedule in PIPE_SCHEDULES:
         step, init_all, _ = tpipe.make_pipeline_train_step(
@@ -4051,7 +4171,7 @@ def phase_remat_search(batches) -> dict:
 def phase_table(name: str, launches: dict, train_launches: dict,
                 adam8: dict, moe_runs: dict, more_launches: dict,
                 ring_runs: dict, mesh_adam8: dict, virtual: dict,
-                decode_attn: dict):
+                decode_attn: dict, adamw: dict):
     bw, bf16_peak, f32_peak = measure.peaks(name)
     gen = torch.Generator("cuda").manual_seed(SEED + 3)
     cfg = LlamaConfig.llama3_1b()
@@ -4237,6 +4357,18 @@ def phase_table(name: str, launches: dict, train_launches: dict,
                         "per_rank": run["per_rank"], "bound_by": "bytes"}
             for mesh_name, run in virtual.items()},
     })
+    # -- kernel 8, the fused AdamW update: the dense cell's largest leaf and
+    # its whole tree (phase_adamw); one launch a step of the AdamW train
+    # phase (and of every other AdamW step: launches_in)
+    rows.append({
+        "name": "adamw_fused", "route": "cuda",
+        "source": "tpu_network_operator_torch/ops/csrc/adamw_fused.cu",
+        "replaces": "none: the JAX package leaves AdamW to optax and XLA's "
+                    "fusion",
+        "design": DESIGN["adamw_fused"],
+        "launches": train_launches["adamw_fused"], **adamw,
+        "library": "torch._fused_adamw_: a yardstick the port never calls",
+    })
     # -- decode attention: the benchmark's decode cell, llama3-1b's serving
     # shape and a batch small enough to split the keys (phase_decode_attn)
     rows.append({
@@ -4260,6 +4392,10 @@ def main(argv=None) -> int:
     args.add_argument("--adam8-leaves", action="store_true",
                       help="only time the 8-bit AdamW update at the "
                            "llama3-1b leaves (phase_adam8_leaves)")
+    args.add_argument("--adamw", action="store_true",
+                      help="only build the kernels and check and time "
+                           "kernel 8 at the dense cell's leaves "
+                           "(phase_adamw)")
     args.add_argument("--remat-ffn", action="store_true",
                       help="only profile the llama3-1b+ffn+adam8 step and "
                            "count its layers' backward matmuls "
@@ -4298,6 +4434,10 @@ def main(argv=None) -> int:
         phase_remat_search(SWEEP_FULL_BATCHES)
         print(smi, flush=True)
         return 0
+    if args.adamw:
+        phase_adamw(name)
+        print(smi, flush=True)
+        return 0
     if args.decode_attn:
         phase_decode_attn(name)
         print(smi, flush=True)
@@ -4317,6 +4457,7 @@ def main(argv=None) -> int:
     decode_attn = phase_decode_attn(name)
     phase_kernels_bwd()
     phase_kernels_adam8()
+    adamw = phase_adamw(name)
     launches = phase_generate()
     phase_card_vs_cpu()
     train_launches = phase_train()
@@ -4361,7 +4502,8 @@ def main(argv=None) -> int:
     more_launches["perf_decomp_stages"] = phase_perf_decomp()
     more_launches["remat_search_sweep"] = phase_remat_search(SWEEP_BATCHES)
     phase_table(name, launches, train_launches, adam8, moe_runs,
-                more_launches, ring_runs, mesh_adam8, virtual, decode_attn)
+                more_launches, ring_runs, mesh_adam8, virtual, decode_attn,
+                adamw)
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

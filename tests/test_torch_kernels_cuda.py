@@ -14,6 +14,7 @@ rounding may flip between two f32 summation orders).
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -21,7 +22,9 @@ import torch
 from tpu_network_operator_torch.models import generate as tgen
 from tpu_network_operator_torch.models import llama as tllama
 from tpu_network_operator_torch.models import moe as tmoe
+from tpu_network_operator_torch import tracing
 from tpu_network_operator_torch.models import optim8bit as topt
+from tpu_network_operator_torch.models import training as ttrain
 from tpu_network_operator_torch.ops import _kernels
 from tpu_network_operator_torch.ops import decode_attention as tda
 from tpu_network_operator_torch.ops import flash_attention as tfa
@@ -172,7 +175,8 @@ def test_generate_on_card_matches_cpu_and_counts(cuda):
                                  "rms_norm_fwd": (2 * cfg.layers + 1) * 6,
                                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
                                  "rms_norm_bwd": 0, "adam8_fused": 0,
-                                 "decode_attn": cfg.layers * 5}
+                                 "decode_attn": cfg.layers * 5,
+                                 "adamw_fused": 0}
     with torch.inference_mode():
         lg = {dev: tgen.forward_with_cache(
             p, prompt.to(dev), tgen.init_cache(cfg, 2, 134, device=dev), 0,
@@ -519,7 +523,7 @@ def test_train_step_on_card_matches_cpu(cuda):
                 "flash_bwd_dkv": cfg.layers,
                 "rms_norm_fwd": 4 * cfg.layers + 1,
                 "rms_norm_bwd": 2 * cfg.layers + 1, "adam8_fused": 0,
-                "decode_attn": 0}
+                "decode_attn": 0, "adamw_fused": 0}
     assert abs(out["cuda"][0] - out["cpu"][0]) < 1e-2 * abs(out["cpu"][0])
     for g, r in zip(out["cuda"][1], out["cpu"][1]):
         assert _rel(g.cpu(), r) < 3e-2
@@ -1118,7 +1122,7 @@ def test_moe_train_step_on_card_matches_cpu(cuda):
             assert dict(_kernels.LAUNCHES) == {
                 "flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
                 "rms_norm_fwd": 4 * n + 1, "rms_norm_bwd": 2 * n + 1,
-                "adam8_fused": 1, "decode_attn": 0}
+                "adam8_fused": 1, "decode_attn": 0, "adamw_fused": 0}
     assert abs(losses["cuda"] - losses["cpu"]) < 1e-2 * losses["cpu"]
 
 
@@ -1307,8 +1311,9 @@ def test_dryrun_world1_repeats_section_1b_bits(cuda):
     losses (every kernel on the mesh path, the second step's after the
     backward kernels and the 8-bit update) the same bits each run, those
     on random tokens within the reference's budget of the plain steps on
-    the CPU, each of the six training kernels launched in it, and the
-    decode kernel not: the dry run trains and never decodes."""
+    the CPU, each of the six training kernels launched in it, and neither
+    the decode kernel (the dry run trains and never decodes) nor kernel 8
+    (the section steps with adamw8bit)."""
     from tpu_network_operator_torch import graft
 
     runs = [graft.dryrun_multichip(1) for _ in range(2)]
@@ -1318,6 +1323,7 @@ def test_dryrun_world1_repeats_section_1b_bits(cuda):
     assert first["drift"] < graft.DRIFT_TOL
     trained = dict(first["launches"])
     assert trained.pop("decode_attn") == 0, first["launches"]
+    assert trained.pop("adamw_fused") == 0, first["launches"]
     assert all(n > 0 for n in trained.values()), first["launches"]
     assert runs[0]["lines"][-1] == graft.OK_LINE
 
@@ -1380,3 +1386,125 @@ def test_grouped_mm_matches_per_expert_loop(cuda, rows, experts, h, f):
         out.extend([y, *torch.autograd.grad(y, (xs, ws), gy)])
     for name, a, r in zip(("y", "dx", "dw"), got, want):
         _assert_grad_close(a, r, name)
+
+
+# -- kernel 8: the fused AdamW update --------------------------------------
+
+ADAMW_CASES = {
+    # the mistral-7b-l24 cell's leaves (embed, a stacked FFN leaf cut to 2
+    # layers, wq, wk, a layer norm, the final norm): the vector path
+    "cell": [((32768, 4096), "bf16", 0), ((2, 4096, 14336), "bf16", 0),
+             ((2, 4096, 4096), "bf16", 0), ((2, 4096, 1024), "bf16", 0),
+             ((2, 4096), "bf16", 0), ((4096,), "bf16", 0)],
+    # short last units (91, 5 and 15 values), a parameter 2 bytes off its
+    # buffer's start and a gradient 4 bytes off (a view into a flat
+    # all-reduce buffer): the scalar loop
+    "tail": [((7, 13), "bf16", 0), ((5,), "f32", 0), ((3, 5), "f16", 0),
+             ((8, 257), "bf16", 1), ((4, 300), "bf16", -2),
+             ((1000,), "f32", 0)],
+    # one tree of every (p, g) pair the port hands the optimizer: bf16 (the
+    # model), f32 (the MoE router, f32 configs), f16 (f16 configs)
+    "mixed": [((256, 1024), "bf16", 0), ((2, 1024, 8), "f32", 0),
+              ((3, 1000), "f16", 0), ((4096,), "bf16", 0),
+              ((64, 64), "f32", 0)],
+}
+ADAMW_NAMES = ("p", "m", "v")
+
+
+def _offset(shape, dtype, offset, gen=None):
+    """A ``shape`` tensor starting ``offset`` elements into a fresh buffer
+    (a view; 0: the tensor itself), of random values drawn from ``gen``
+    (None: not set)."""
+    n = math.prod(shape) + offset
+    buf = (torch.empty(n, device="cuda", dtype=dtype) if gen is None else
+           torch.randn(n, device="cuda", generator=gen).to(dtype))
+    return buf[offset:].view(shape)
+
+
+def _adamw_case(case, gen):
+    """(params, three steps' gradients) of a case, the offsets taken: a
+    positive offset moves the parameter, a negative one the gradients."""
+    params, grads = {}, [[] for _ in range(3)]
+    for i, (shape, dtype, off) in enumerate(ADAMW_CASES[case]):
+        dt = DTYPES[dtype]
+        params[f"p{i}"] = _offset(shape, dt, max(off, 0), gen).mul_(0.05)
+        for step in grads:
+            g = _offset(shape, dt, max(-off, 0), gen).mul_(1e-3 * (i + 1))
+            g.view(-1)[: g.numel() // 8] = 0      # an absent token's rows
+            step.append(g)
+    return params, grads
+
+
+def _adamw_run(params, grads, kernel):
+    """Three steps with carried state through the kernel or the eager
+    sequence, on copies of ``params`` (offsets kept): p, m and v after
+    every step."""
+    params = {k: _offset(p.shape, p.dtype, p.storage_offset()).copy_(p)
+              for k, p in params.items()}
+    opt = ttrain.AdamW(3e-4, weight_decay=0.1)
+    state = opt.init(params)
+    out = []
+    for i, g in enumerate(grads, start=1):
+        leaves = list(zip(params.values(), g, state["mu"].values(),
+                          state["nu"].values()))
+        consts = opt.consts(i, {p.dtype for p in params.values()})
+        n = _kernels.LAUNCHES["adamw_fused"]
+        (ttrain.adamw_fused if kernel else ttrain.adamw_plain)(leaves, consts)
+        assert _kernels.LAUNCHES["adamw_fused"] == n + int(kernel)
+        out.append([t.clone() for leaf in leaves
+                    for t in (leaf[0], leaf[2], leaf[3])])
+    return out
+
+
+def _mismatch(a, b) -> str:
+    bad = (_bits(a) != _bits(b)).reshape(-1).nonzero()[:4, 0]
+    return (f"{int((_bits(a) != _bits(b)).sum())} of {a.numel()} differ, "
+            f"first at {bad.tolist()}: {a.reshape(-1)[bad].tolist()} "
+            f"against {b.reshape(-1)[bad].tolist()}")
+
+
+@pytest.mark.parametrize("case", list(ADAMW_CASES))
+def test_adamw_kernel_matches_eager_bit_for_bit(cuda, case):
+    # three steps with carried state: the kernel's p, m and v are the eager
+    # CUDA sequence's bits (adamw_plain on the card), and a repeat's
+    params, grads = _adamw_case(case, cuda)
+    if case == "tail":
+        assert params["p3"].data_ptr() % 16 and grads[0][4].data_ptr() % 16
+    first, again, eager = (_adamw_run(params, grads, kernel)
+                           for kernel in (True, True, False))
+    for step, (k1, k2, ref) in enumerate(zip(first, again, eager), start=1):
+        for i, (a, b, r) in enumerate(zip(k1, k2, ref)):
+            what = (step, f"p{i // 3}", ADAMW_NAMES[i % 3])
+            assert torch.equal(_bits(a), _bits(b)), (*what, "repeat")
+            assert torch.equal(_bits(a), _bits(r)), (*what, _mismatch(a, r))
+
+
+def test_adamw_apply_steps_the_tree_in_one_launch(cuda):
+    # AdamW.apply on a CUDA tree (bf16 leaves and an f32 one): one
+    # adamw_fused launch a step, the eager sequence's bits, the same
+    # objects back, and the counter of stepped values equal to the tree's
+    from torch.profiler import ProfilerActivity, profile
+
+    params, grads = _adamw_case("mixed", cuda)
+    eager = _adamw_run(params, grads, kernel=False)
+    opt = ttrain.AdamW(3e-4, weight_decay=0.1)
+    state = opt.init(params)
+    tracing.reset_counters()
+    try:
+        for step, g in enumerate(grads):
+            n = _kernels.LAUNCHES["adamw_fused"]
+            with profile(activities=[ProfilerActivity.CPU]):
+                out = opt.apply(params, g, state)
+            assert out[0] is params and out[1] is state
+            assert _kernels.LAUNCHES["adamw_fused"] == n + 1
+            got = [t for p, m, v in zip(params.values(),
+                                        state["mu"].values(),
+                                        state["nu"].values())
+                   for t in (p, m, v)]
+            assert all(torch.equal(_bits(a), _bits(r))
+                       for a, r in zip(got, eager[step])), step
+        assert state["count"] == 3
+        assert tracing.counters() == {"optim.adamw_fused_elems": 3 * sum(
+            p.numel() for p in params.values())}
+    finally:
+        tracing.reset_counters()

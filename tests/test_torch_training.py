@@ -8,6 +8,7 @@ there through the seams the JAX suite uses.  Each tolerance is stated
 beside its reason.
 """
 
+import ctypes
 import dataclasses
 import json
 
@@ -316,6 +317,136 @@ def test_adamw_matches_optax_on_shared_grads(dtype):
         np.testing.assert_allclose(leaf.float().numpy(), _np(jleaf),
                                    rtol=1e-5 if dtype == "float32"
                                    else 2 ** -7, atol=1e-9, err_msg=name)
+
+
+def _adamw_leaves(dtype=torch.bfloat16, shapes=((8, 16), (32,), (4, 4, 4)),
+                  seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    params = {f"p{i}": torch.randn(s, generator=gen).to(dtype)
+              for i, s in enumerate(shapes)}
+    grads = [torch.randn(s, generator=gen).mul_(1e-2).to(dtype)
+             for s in shapes]
+    return params, grads
+
+
+def test_adamw_cpu_leaves_take_the_plain_path():
+    # CPU leaves go through adamw_plain, as the eager loop always did: no
+    # kernel launch, no count of fused values, the plain version's bits
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpu_network_operator_torch import tracing
+    from tpu_network_operator_torch.ops import _kernels
+
+    params, grads = _adamw_leaves()
+    ref = {k: p.clone() for k, p in params.items()}
+    opt = ttraining.adamw(3e-4, weight_decay=0.1)
+    state, ref_state = opt.init(params), opt.init(ref)
+    _kernels.reset_launches()
+    tracing.reset_counters()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            for count in (1, 2):
+                out = opt.apply(params, grads, state)
+                assert out[0] is params and out[1] is state
+                ttraining.adamw_plain(
+                    list(zip(ref.values(), grads, ref_state["mu"].values(),
+                             ref_state["nu"].values())),
+                    opt.consts(count, {torch.bfloat16}))
+        assert _kernels.LAUNCHES["adamw_fused"] == 0
+        assert "optim.adamw_fused_elems" not in tracing.counters()
+    finally:
+        tracing.reset_counters()
+    assert state["count"] == 2
+    for a, b in zip([*params.values(), *state["mu"].values(),
+                     *state["nu"].values()],
+                    [*ref.values(), *ref_state["mu"].values(),
+                     *ref_state["nu"].values()]):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype,count", [(torch.bfloat16, 1),
+                                         (torch.bfloat16, 1000),
+                                         (torch.float16, 3),
+                                         (torch.float32, 7)])
+def test_adamw_consts_are_the_constants_rounded_to_the_dtype(dtype, count):
+    # each constant rounded to the leaf's dtype through float64, the bias
+    # corrections first taken in f32: what the eager loop's per-leaf c()
+    # gave, now once a step for each dtype
+    opt = ttraining.adamw(3e-4, weight_decay=0.1)
+    k = opt.consts(count, [dtype])[dtype]
+    bc1, bc2 = ttraining.bias_corrections(0.9, 0.999, count)
+
+    def c(x):
+        return torch.tensor(float(x), dtype=torch.float64).to(dtype).item()
+
+    assert tuple(k) == tuple(c(x) for x in (0.9, 1 - 0.9, 0.999, 1 - 0.999,
+                                            bc1, bc2, 1e-8, 0.1, -3e-4))
+    if dtype == torch.bfloat16:
+        assert (k.b2, k.omb1) == (1.0, 0.10009765625)
+    kc = list(ttraining._kernel_consts({dtype: k}))
+    code = ttraining.ADAMW_DTYPES[dtype]
+    row = kc[9 * code:9 * code + 9]
+    recip = [float(np.float32(1.0) / np.float32(c)) for c in (k.c1, k.c2)]
+    assert row == pytest.approx([k.b1, k.omb1, k.b2, k.omb2, *recip, k.eps,
+                                 k.wd, k.neg_lr], rel=0, abs=0)
+    assert not any(kc[:9 * code] + kc[9 * code + 9:])
+
+
+def test_adamw_tables_number_units_and_pick_the_vector_path():
+    # 16-byte units (8 values in 16 bits, 4 in f32) numbered through the
+    # table, an empty leaf left out, a view 2 bytes off its buffer on the
+    # scalar loop, and a new table every 64 leaves
+    buf = torch.zeros(1 + 8 * 257, dtype=torch.bfloat16)
+    leaves = []
+    for p in (torch.zeros(7, 13, dtype=torch.bfloat16),
+              torch.zeros(0, 4), torch.zeros(5),
+              torch.zeros(3, 5, dtype=torch.float16), buf[1:].view(8, 257)):
+        leaves.append((p, torch.zeros_like(p), torch.zeros_like(p),
+                       torch.zeros_like(p)))
+    [table] = ttraining.adamw_tables(leaves)
+    got = [(e.start, e.n, e.dtype, e.vec) for e in table]
+    aligned = [all(t.data_ptr() % 16 == 0 for t in leaf) for leaf in leaves]
+    assert got == [(0, 91, 1, int(aligned[0])), (12, 5, 0, int(aligned[2])),
+                   (14, 15, 2, int(aligned[3])), (16, 2056, 1, 0)]
+    many = [(t, t, t, t) for t in torch.zeros(130, 4).unbind()]
+    tables = ttraining.adamw_tables(many)
+    assert [len(t) for t in tables] == [64, 64, 2]
+    assert [t[0].start for t in tables] == [0, 0, 0]
+    assert ctypes.sizeof(ttraining.AdamWLeafEntry) == 56
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("g_dtype", ValueError, "adamw_fused takes g of p's dtype"),
+    ("m_shape", ValueError, "adamw_fused takes m of p's dtype"),
+    ("v_dtype", ValueError, "adamw_fused takes v of p's dtype"),
+    ("float64", TypeError, "adamw_fused takes float32, bfloat16 or float16"),
+    ("strided", ValueError, "adamw_fused takes contiguous tensors"),
+    ("aliased", ValueError, "adamw_fused takes leaves whose tensors share"),
+    ("cpu", ValueError, "adamw_fused takes CUDA tensors"),
+])
+def test_adamw_fused_refuses_by_name(case, error, match):
+    # each refusal is raised before any kernel is built or launched
+    from tpu_network_operator_torch.ops import _kernels
+
+    p = torch.zeros(4, 8, dtype=torch.bfloat16)
+    g, m, v = (torch.zeros_like(p) for _ in range(3))
+    if case == "g_dtype":
+        g = g.float()
+    elif case == "m_shape":
+        m = m.reshape(8, 4)
+    elif case == "v_dtype":
+        v = v.half()
+    elif case == "float64":
+        p, g, m, v = (t.double() for t in (p, g, m, v))
+    elif case == "strided":
+        p, g, m, v = (t.t() for t in (p, g, m, v))
+    elif case == "aliased":
+        m = p.view(4, 8)
+    _kernels.reset_launches()
+    k = ttraining.adamw().consts(1, {p.dtype, torch.float64})
+    with pytest.raises(error, match=match):
+        ttraining.adamw_fused([(p, g, m, v)], k)
+    assert _kernels.LAUNCHES["adamw_fused"] == 0
 
 
 # -- one whole train step -----------------------------------------------------

@@ -11,9 +11,12 @@ supplies the gradient and loss reductions (``models/llama.py``
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Callable, Dict, Iterator, Mapping, Optional, Tuple
+from typing import (Callable, Dict, Iterable, Iterator, List, Mapping,
+                    NamedTuple, Optional, Sequence, Tuple)
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -22,6 +25,7 @@ from torch.utils.checkpoint import (
 )
 
 from .. import tracing
+from ..ops import _kernels
 from ..ops.norms import rms_norm
 from ..parallel import comm
 
@@ -333,8 +337,155 @@ def bias_corrections(b1: float, b2: float, count: int) -> Tuple[float, float]:
         for b in (b1, b2))
 
 
+class AdamWConsts(NamedTuple):
+    """One step's constants for the leaves of one dtype, each a host float
+    that is a value of that dtype (see :class:`AdamW`): b1, 1 - b1, b2,
+    1 - b2, the bias corrections c1 and c2, eps, the weight decay and
+    -lr."""
+
+    b1: float
+    omb1: float
+    b2: float
+    omb2: float
+    c1: float
+    c2: float
+    eps: float
+    wd: float
+    neg_lr: float
+
+
+AdamWLeaf = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+# (p, g, m, v)
+
+
+def adamw_plain(leaves: Sequence[AdamWLeaf],
+                consts: Mapping[torch.dtype, AdamWConsts]) -> None:
+    """The plain version of :func:`adamw_fused`: each leaf stepped in place
+    by eager elementwise ops, with ``consts`` of the leaf's dtype."""
+    for p, g, m, v in leaves:
+        k = consts[p.dtype]
+        m.mul_(k.b1).add_(g * k.omb1)
+        v.mul_(k.b2).add_(torch.square(g) * k.omb2)
+        m_hat = m / k.c1
+        v_hat = v / k.c2
+        u = m_hat / (torch.sqrt(v_hat) + k.eps)
+        u = u + k.wd * p
+        p.add_(u * k.neg_lr)
+
+
+# the kernel's dtype codes (csrc/adamw_fused.cu), the order of its constants
+ADAMW_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+ADAMW_TABLE_LEAVES = 64   # leaves one launch takes (the kernel's kMaxLeaves)
+
+
+class AdamWLeafEntry(ctypes.Structure):
+    """One leaf of a launch's table, laid out as ``csrc/adamw_fused.cu``'s
+    ``Leaf`` (56 bytes)."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("m", ctypes.c_void_p), ("v", ctypes.c_void_p),
+                ("start", ctypes.c_longlong),  # its first 16-byte unit
+                ("n", ctypes.c_longlong),      # values
+                ("dtype", ctypes.c_int),       # ADAMW_DTYPES
+                ("vec", ctypes.c_int)]         # 1: all four 16-byte aligned
+
+
+def _check_adamw_leaf(p, g, m, v) -> None:
+    if p.dtype not in ADAMW_DTYPES:
+        raise TypeError(f"adamw_fused takes float32, bfloat16 or float16 "
+                        f"parameters, got {p.dtype}")
+    for name, t in (("g", g), ("m", m), ("v", v)):
+        if t.dtype != p.dtype or t.shape != p.shape or t.device != p.device:
+            raise ValueError(
+                f"adamw_fused takes {name} of p's dtype, shape and device "
+                f"({p.dtype} {tuple(p.shape)} {p.device}), got {t.dtype} "
+                f"{tuple(t.shape)} {t.device}")
+    if not all(t.is_contiguous() for t in (p, g, m, v)):
+        raise ValueError("adamw_fused takes contiguous tensors")
+
+
+def _check_adamw_disjoint(leaves: Sequence[AdamWLeaf]) -> None:
+    """Refuse leaves whose tensors share memory: the kernel reads every
+    tensor of a leaf and rewrites p, m and v as their own."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.numel() * t.element_size())
+                   for leaf in leaves for t in leaf if t.numel())
+    for (_, end), (start, _) in zip(spans, spans[1:]):
+        if start < end:
+            raise ValueError("adamw_fused takes leaves whose tensors share "
+                             "no memory")
+
+
+def adamw_tables(leaves: Sequence[AdamWLeaf]) -> List[List[AdamWLeafEntry]]:
+    """The kernel's launch tables for ``leaves``: every leaf that holds
+    values, in order, at most :data:`ADAMW_TABLE_LEAVES` to a table, each
+    table's 16-byte units (4 values in float32, 8 in 16 bits) numbered
+    from 0.  A leaf whose four tensors are 16-byte aligned takes vector
+    loads; any other, and a leaf's short last unit, a scalar loop."""
+    tables: List[List[AdamWLeafEntry]] = []
+    table: List[AdamWLeafEntry] = []
+    start = 0
+    for p, g, m, v in leaves:
+        n = p.numel()
+        if n == 0:
+            continue
+        if len(table) == ADAMW_TABLE_LEAVES:
+            tables.append(table)
+            table, start = [], 0
+        vec = all(t.data_ptr() % 16 == 0 for t in (p, g, m, v))
+        table.append(AdamWLeafEntry(p.data_ptr(), g.data_ptr(), m.data_ptr(),
+                                    v.data_ptr(), start, n,
+                                    ADAMW_DTYPES[p.dtype], int(vec)))
+        start += -(-n * p.element_size() // 16)
+    if table:
+        tables.append(table)
+    return tables
+
+
+def _kernel_consts(consts: Mapping[torch.dtype, AdamWConsts]):
+    """The kernel's constants: for each of its dtypes, nine f32 values
+    (zeros for a dtype absent here), the bias corrections as their f32
+    reciprocals, since a tensor divided by a host scalar is a product with
+    the scalar's f32 reciprocal on the card (``div_true_kernel_cuda``)."""
+    vals = []
+    for dtype in ADAMW_DTYPES:
+        k = consts.get(dtype)
+        if k is None:
+            vals += [0.0] * len(AdamWConsts._fields)
+            continue
+        one = np.float32(1.0)
+        vals += [k.b1, k.omb1, k.b2, k.omb2, float(one / np.float32(k.c1)),
+                 float(one / np.float32(k.c2)), k.eps, k.wd, k.neg_lr]
+    return (ctypes.c_float * len(vals))(*vals)
+
+
+def adamw_fused(leaves: Sequence[AdamWLeaf],
+                consts: Mapping[torch.dtype, AdamWConsts]) -> None:
+    """The kernel (``csrc/adamw_fused.cu``): steps every leaf's p, m and v
+    in place, the bits of :func:`adamw_plain` on the card, one launch for
+    each :data:`ADAMW_TABLE_LEAVES` leaves.  Counts the values it stepped
+    under ``optim.adamw_fused_elems`` (:mod:`..tracing`)."""
+    leaves = list(leaves)
+    for leaf in leaves:
+        _check_adamw_leaf(*leaf)
+    _check_adamw_disjoint(leaves)
+    devices = {leaf[0].device for leaf in leaves}
+    if any(d.type != "cuda" for d in devices):
+        raise ValueError(f"adamw_fused takes CUDA tensors, got {devices}")
+    if len(devices) > 1:
+        raise ValueError("adamw_fused takes leaves on one device")
+    kc = _kernel_consts(consts)
+    for table in adamw_tables(leaves):
+        err = _kernels.lib().tpunet_adamw_fused(
+            (AdamWLeafEntry * len(table))(*table), len(table), kc,
+            _kernels.stream_handle(leaves[0][0].device))
+        _kernels.check(err, "adamw_fused")
+        _kernels.count_launch("adamw_fused")
+    tracing.count("optim.adamw_fused_elems",
+                  lambda: torch.tensor(sum(p.numel() for p, *_ in leaves)))
+
+
 class AdamW:
-    """``optax.adamw`` in plain tensor code, updating in place.
+    """``optax.adamw``, updating in place.
 
     Same defaults (b1 0.9, b2 0.999, eps 1e-8, decay on every leaf),
     moments in the parameter dtype, and optax's order of operations:
@@ -342,7 +493,11 @@ class AdamW:
     p + u in p's dtype.  Every Python constant meets a tensor in that
     tensor's dtype, as JAX casts a weak-typed scalar (so in bf16, b2
     = 0.999 is 1.0 and 1 − b1 is 0.10009765625, as under optax), and the
-    bias corrections 1 − βᵗ are taken in f32 before the cast."""
+    bias corrections 1 − βᵗ are taken in f32 before the cast.
+
+    :meth:`apply` steps CUDA leaves through :func:`adamw_fused`, one
+    launch for the tree, and CPU leaves through :func:`adamw_plain`,
+    which the kernel computes bit for bit on the card."""
 
     def __init__(self, lr: float = 3e-4, weight_decay: float = 0.1,
                  b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
@@ -360,28 +515,32 @@ class AdamW:
         ``count``, a host int, None."""
         return {"count": None, "mu": param_specs, "nu": param_specs}
 
+    def consts(self, count: int,
+               dtypes: Iterable[torch.dtype]) -> Dict[torch.dtype, AdamWConsts]:
+        """Step ``count``'s constants for each of ``dtypes``: each Python
+        constant rounded to the dtype through float64, the bias
+        corrections taken once in f32 before that."""
+        bc1, bc2 = bias_corrections(self.b1, self.b2, count)
+        raw = (self.b1, 1 - self.b1, self.b2, 1 - self.b2, bc1, bc2,
+               self.eps, self.weight_decay, -self.lr)
+        return {dt: AdamWConsts(*torch.tensor(raw, dtype=torch.float64)
+                                .to(dt).tolist())
+                for dt in dtypes}
+
     @torch.no_grad()
     def apply(self, params: Tree, grads, state) -> Tuple[Tree, Dict]:
         """Step every leaf of ``params`` by its gradient (``grads`` in
         :func:`tree_leaves` order) and return (params, state), both
         updated in place."""
         count = state["count"] + 1
-        bc1, bc2 = bias_corrections(self.b1, self.b2, count)
-        for p, g, m, v in zip(tree_leaves(params), grads,
-                              tree_leaves(state["mu"]),
-                              tree_leaves(state["nu"])):
-            def c(x):
-                # the constant rounded to p's dtype, as a host float
-                return torch.tensor(float(x), dtype=torch.float64).to(
-                    p.dtype).item()
-
-            m.mul_(c(self.b1)).add_(g * c(1 - self.b1))
-            v.mul_(c(self.b2)).add_(torch.square(g) * c(1 - self.b2))
-            m_hat = m / c(bc1)
-            v_hat = v / c(bc2)
-            u = m_hat / (torch.sqrt(v_hat) + c(self.eps))
-            u = u + c(self.weight_decay) * p
-            p.add_(u * c(-self.lr))
+        leaves = list(zip(tree_leaves(params), grads,
+                          tree_leaves(state["mu"]),
+                          tree_leaves(state["nu"])))
+        consts = self.consts(count, {p.dtype for p, *_ in leaves})
+        cuda = [leaf for leaf in leaves if leaf[0].is_cuda]
+        if cuda:
+            adamw_fused(cuda, consts)
+        adamw_plain([leaf for leaf in leaves if not leaf[0].is_cuda], consts)
         state["count"] = count
         return params, state
 

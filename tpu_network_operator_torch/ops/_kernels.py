@@ -49,7 +49,7 @@ NVCC_FLAGS = (
 LAUNCHES: Dict[str, int] = {
     "rms_norm_fwd": 0, "rms_norm_bwd": 0,
     "flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-    "adam8_fused": 0, "decode_attn": 0,
+    "adam8_fused": 0, "decode_attn": 0, "adamw_fused": 0,
 }
 
 _P = ctypes.c_void_p
@@ -70,6 +70,7 @@ _SIGNATURES = {
     "tpunet_adam8_fused": [_P, _I] + [_F] * 9 + [_P],
     "tpunet_decode_attn": [_P] * 6 + [_I] * 5 + [_P, _I, _I] + [_LL] * 10
     + [_F, _I, _P],
+    "tpunet_adamw_fused": [_P, _I, _P, _P],
 }
 
 _lock = threading.Lock()
